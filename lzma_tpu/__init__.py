@@ -1,13 +1,13 @@
-"""lzma_tpu — a TPU-native LZMA codec framework.
+"""lzma_tpu — an LZMA codec framework with a JAX device path.
 
 Capability parity with the reference Java LZMA SDK (rfalke/lzma-java),
-re-architected TPU-first:
+re-architected for lane-parallel devices:
 
 - ``core``     format constants, state machine, price model, flat prob arena
 - ``codec``    scalar encoder (BT2/BT4/HC4 + optimal parse) / decoder oracles
 - ``match``    match finders
-- ``ops``      JAX/Pallas device kernels: lane-parallel range-coder FSMs,
-               sort-based parallel match finding
+- ``ops``      JAX device path: lane-parallel range-coder FSMs (Pallas-
+               Triton kernels on a GPU), sort-based parallel match finding
 - ``parallel`` block-parallel framing + mesh/shard_map multi-chip pipeline
 - ``runtime``  native C++ multithreaded block codec (ctypes)
 - ``bench``    LzmaBench-equivalent synthetic benchmark + ratings
@@ -53,7 +53,7 @@ def compress(data: bytes, params: LzmaParams | None = None,
 
     Routes through the native runtime when built (byte-identical to the
     scalar oracle — pinned by tests), scalar otherwise.
-    backend="hybrid" (LZTB only) runs the hybrid-OPTIMAL TPU pipeline:
+    backend="hybrid" (LZTB only) runs the hybrid-OPTIMAL pipeline:
     device multi-tier candidate search + host optimal parse/serialize
     (ops/hybrid.encode_blocks_hybrid_optimal) — ratio ~ native bt4-opt
     at a fraction of the host cost, with the search on the accelerator.

@@ -1,7 +1,7 @@
-"""Frozen real-file benchmark corpus (VERDICT r1 item 5).
+"""Frozen real-file benchmark corpus.
 
-The rig has no network (Silesia/Calgary/enwik unavailable — BASELINE
-configs 0/1/4), so round-over-round ratio comparability comes from a
+There is no network (Silesia/Calgary/enwik unavailable — BASELINE
+configs 0/1/4), so run-over-run ratio comparability comes from a
 hash-pinned local corpus instead:
 
   text part   — 3 MiB of CPython stdlib sources, committed to the repo
@@ -15,8 +15,8 @@ hash-pinned local corpus instead:
                 code/data/resource sections.
 
 `frozen_corpus()` returns the ~4.1 MiB concatenation and verifies its
-SHA-256, making every round's ratio/throughput numbers directly
-comparable (MEASUREMENTS.md keeps the table).
+SHA-256, making every run's ratio/throughput numbers directly
+comparable.
 """
 
 from __future__ import annotations

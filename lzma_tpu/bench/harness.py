@@ -3,7 +3,7 @@
 Encode/decode passes over deterministic LZ-structured data with CRC32
 validation (two decodes per encode, like the reference), reporting KB/s
 and 7-Zip MIPS ratings per pass and on average.  Backend-pluggable so the
-same harness rates the scalar, native and TPU paths.
+same harness rates the scalar, native and device paths.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def run_benchmark(
     out=print,
 ) -> BenchResult:
     """Benchmark loop.  encode_fn(data)->bytes / decode_fn(comp, out_size)->bytes
-    default to the scalar codec; pass native/TPU backends to rate them."""
+    default to the scalar codec; pass native/device backends to rate them."""
     if dict_size < (1 << 18):
         raise ValueError("benchmark dictionary must be >= 2^18")
     params = params or LzmaParams(dict_size=dict_size)

@@ -1,4 +1,4 @@
-"""Parameter-sweep benchmark: BASELINE config 3 on a zero-egress rig.
+"""Parameter-sweep benchmark: BASELINE config 3 without network access.
 
 Sweeps lc/lp/pb combinations and dictionary sizes over a deterministic
 mixed text/binary corpus assembled from local files (python stdlib
@@ -87,8 +87,8 @@ def main(size_mb: int = 8, out=print):
         out(f"| 3 | 0 | 2 | {dict_size >> 10}K | {r:.3f} | {e:.1f} | {d:.1f} |")
 
     # dictionary modes: plain vs v2 prefix preset vs v3 trained (stored)
-    # vs v3 auto-sized — the container-size trade recorded in
-    # MEASUREMENTS.md, regenerable here
+    # vs v3 auto-sized — the container-size trade (DESIGN-NOTES.md),
+    # regenerable here
     from ..runtime import native
     from ..utils.dicttrain import select_dictionary, train_dictionary
 

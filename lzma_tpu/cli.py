@@ -4,7 +4,7 @@ Same surface as the reference CLI (LzmaAlone.java:42-154): `e`/`d`/`b`
 commands, `-d{N} -fb{N} -a{N} -lc{N} -lp{N} -pb{N} -eos -mf{bt2,bt4}`
 switches, `--` to end switch parsing, same defaults (dict 2^23, fb 128,
 lc3 lp0 pb2, bt4, max mode).  Extensions: `-mfhc4`/`-mffast4`,
-`-backend{scalar,native,tpu,hybrid}`, `-bs{N}` block size + `-t{N}`
+`-backend{scalar,native,device,hybrid}`, `-bs{N}` block size + `-t{N}`
 threads for the block-parallel LZTB container, `-ps{N}` shared preset
 (LZTB v2), `-td{N}`/`-tdauto` trained dictionary (LZTB v3), `-tune`
 measured lc/lp/pb selection, `-q` quiet.
@@ -18,7 +18,7 @@ from .format.properties import LzmaParams
 from .codec.encoder import encode_alone
 from .codec.decoder import decode_alone
 
-BANNER = "\nLZMA (tpu) 0.1  — capability parity with LZMA (Java) 4.61\n"
+BANNER = "\nLZMA (JAX) 0.1  — capability parity with LZMA (Java) 4.61\n"
 
 HELP = """
 Usage:  lzma_tpu <e|d|b> [<switches>...] inputFile outputFile
@@ -33,7 +33,8 @@ Usage:  lzma_tpu <e|d|b> [<switches>...] inputFile outputFile
   -pb{N}: set number of pos bits - [0, 4], default: 2
   -mf{MF_ID}: set Match Finder: [bt2, bt4, hc4, fast4], default: bt4
   -eos:   write End Of Stream marker
-  -backend{B}: scalar | native | tpu | hybrid (default: native if built,
+  -backend{B}: scalar | native | device | hybrid (default: native if
+          built,
           else scalar; hybrid = device match search + native serialize,
           encode with -bs{N}, decodes via native; -a2 [default] runs the
           hybrid-OPTIMAL pipeline — device candidate lists + host optimal
@@ -75,7 +76,7 @@ class CommandLine:
         try:
             if s.startswith("backend"):
                 self.backend = s[7:]
-                return self.backend in ("scalar", "native", "tpu", "hybrid")
+                return self.backend in ("scalar", "native", "device", "hybrid")
             if s.startswith("bs"):
                 self.block_size = int(s[2:])
             elif s.startswith("d"):
@@ -186,13 +187,14 @@ def _pick_backend(name):
         except Exception:
             if name == "native":
                 raise
-    if name == "tpu":
-        from .ops import api as tpu_api
+    if name == "device":
+        from .ops import api as device_api
 
         return (
-            lambda data, params, mode=None: tpu_api.encode_alone(data, params),
-            tpu_api.decode_alone,
-            "tpu",
+            lambda data, params, mode=None: device_api.encode_alone(data,
+                                                                    params),
+            device_api.decode_alone,
+            "device",
         )
     return (
         lambda data, params, mode=None: encode_alone(data, params, mode=mode),
@@ -211,6 +213,10 @@ def main(argv=None) -> int:
     if not cmd.parse(args):
         print("\nIncorrect command")
         return 1
+    if cmd.backend in ("device", "hybrid"):
+        from .utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
     try:
         return _dispatch(cmd)
     except (OSError, ValueError, RuntimeError) as e:
@@ -251,14 +257,14 @@ def _dispatch(cmd: "CommandLine") -> int:
             elif cmd.backend == "native":
                 # explicit request must not silently rate the scalar codec
                 _native._lib()  # raises NativeUnavailable with the cause
-        elif cmd.backend == "tpu":
-            from .ops import api as _tpu
+        elif cmd.backend == "device":
+            from .ops import api as _device
 
             def enc_fn(d):
-                return _tpu.encode_stream(d, bench_params)
+                return _device.encode_stream(d, bench_params)
 
             def dec_fn(comp, out_size):
-                return _tpu.decode_stream(comp, bench_params, out_size)
+                return _device.decode_stream(comp, bench_params, out_size)
 
         elif cmd.backend == "hybrid":
             # hybrid-optimal: device candidate search + host optimal
@@ -339,8 +345,7 @@ def _dispatch(cmd: "CommandLine") -> int:
             with open(cmd.in_file, "rb") as f:
                 data = f.read()
             if cmd.algorithm >= 2:
-                # flagship TPU encode: device multi-tier candidate lists +
-                # host optimal parse (ratio ~ native bt4-opt at a fraction
+                # device multi-tier candidate lists + host optimal parse (ratio ~ native bt4-opt at a fraction
                 # of the host cost)
                 from .ops.hybrid import encode_blocks_hybrid_optimal
 
@@ -451,10 +456,10 @@ def _dispatch(cmd: "CommandLine") -> int:
         if cmd.command == "e":
             params = cmd.params().validated_for_encode()
             if cmd.block_size:
-                if backend == "tpu":
-                    from .ops import api as tpu_api
+                if backend == "device":
+                    from .ops import api as device_api
 
-                    out = tpu_api.encode_blocks(
+                    out = device_api.encode_blocks(
                         data, params, block_size=cmd.block_size,
                         preset_len=cmd.preset_len,
                         dictionary=_trained_dict(data),
@@ -472,10 +477,10 @@ def _dispatch(cmd: "CommandLine") -> int:
                 out = enc(data, params, mode=cmd.mode())
         else:
             if data[:4] == b"LZTB":
-                if backend == "tpu":
-                    from .ops import api as tpu_api
+                if backend == "device":
+                    from .ops import api as device_api
 
-                    out = tpu_api.decode_blocks(data)
+                    out = device_api.decode_blocks(data)
                 else:
                     from .parallel.blocks import decode_blocks
 

@@ -9,7 +9,7 @@ tree, EOS detection via rep0 == 0xFFFFFFFF, and the corruption checks
 
 Decodes into one in-memory buffer (the block-parallel design keeps every
 block resident, so the circular OutWindow of the streaming reference
-collapses to plain appends); the TPU backend (ops/device_decoder.py)
+collapses to plain appends); the device backend (ops/device_decoder.py)
 re-expresses this loop as a lane-parallel bit FSM.
 """
 

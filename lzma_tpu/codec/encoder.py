@@ -11,7 +11,7 @@ parity with the reference is asserted by tests/test_golden_sizes.py.
 
 A greedy parse mode (our addition, the reference's fast mode is a stub —
 Encoder.java:1127-1133) provides a fast path with the same bitstream
-validity; the TPU backend mirrors it lane-parallel in ops/.
+validity; the device backend mirrors it lane-parallel in ops/.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Capability parity with the reference's ``Compression/LZMA/Base.java`` (see
 SURVEY.md #1): same constants, same state-transition semantics.  Written
 array-first so the state machine is usable both scalarly and as vectorized
-jnp/numpy lookups on device (TPU lanes index these tables directly).
+jnp/numpy lookups on device (device lanes index these tables directly).
 
 Reference behavior pinned against: Base.java:6-85.
 """
@@ -17,7 +17,7 @@ NUM_REP_DISTANCES = 4          # Base.java:6
 NUM_STATES = 12                # Base.java:7
 
 # State-transition tables (Base.java:16-36).  Expressed as dense lookup
-# tables rather than branchy functions: on TPU every lane does
+# tables rather than branchy functions: on a device every lane does
 # ``next_state = TABLE[state]`` as a tiny gather / one-hot select.
 _STATES = np.arange(NUM_STATES)
 NEXT_STATE_LITERAL = np.where(

@@ -3,8 +3,8 @@
 The reference scatters its adaptive probabilities across many small Java
 arrays (Encoder.java:113-128, Decoder.java:132-147).  We instead pack the
 entire model into ONE contiguous uint16 arena with fixed offsets derived
-from (lc, lp, pb).  Why: on TPU, per-stream model state must be a single
-dense (lanes, arena_size) array in VMEM/HBM so a batched coder can gather
+from (lc, lp, pb).  Why: on a device, per-stream model state must be a single
+dense (lanes, arena_size) array so a batched coder can gather
 ``probs[lane, ctx]`` uniformly; and the scalar Python, native C++ and JAX
 implementations all share this layout, which makes their internal states
 directly diffable in tests.
@@ -67,10 +67,8 @@ class ProbLayout:
     (Decoder.java:132,137, LenEncoder.java:11-14) so scalar/native
     arenas stay directly diffable.  The device kernels pass
     ``pos_bits=pb``: with pb=2 only 4 of every 16 posState slots are
-    ever touched, and the per-bit one-hot gather/scatter in the Pallas
-    FSMs costs O(arena), so compacting the stride to the live posStates
-    shrinks the hot masked-op width ~25% at lc0 (MEASUREMENTS.md
-    round-2).  Pure memory plan — probabilities, adaptation and output
+    ever touched, so compacting the stride to the live posStates
+    shrinks the arena ~25% at lc0.  Pure memory plan — probabilities, adaptation and output
     bytes are identical.
     """
 

@@ -4,9 +4,8 @@ The range coder models every bit with an 11-bit probability (init 1024,
 adapt shift 5) — RangeBase.java:4-13.  Prices are precomputed -log2(p) in
 1/64-bit units over 512 quantized probability buckets — ProbPrices.java:5-18.
 
-The whole table is a 512-entry int32 vector; on device it lives in VMEM and
-price evaluation is a tiny gather (or, batched, a one-hot matmul feeding the
-MXU).  Values are bit-identical to the reference table (pinned by
+The whole table is a 512-entry int32 vector; on device price evaluation
+is a tiny gather.  Values are bit-identical to the reference table (pinned by
 tests/test_prices.py golden vectors from BitTreeEncoderLearningTest).
 """
 

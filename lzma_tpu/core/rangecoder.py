@@ -9,7 +9,7 @@ from fresh probs yields exactly ``00 dc f8 3c 00`` —
 EncoderLearningTest.java:34-37).  The first emitted byte is always 0x00
 (cache starts 0 with cacheSize 1).
 
-This scalar form exists for correctness and small-input paths; the TPU
+This scalar form exists for correctness and small-input paths; the device
 path re-expresses the same recurrences as a lane-parallel FSM
 (lzma_tpu/ops/) and the native path in C++ (lzma_tpu/runtime/src/).
 """

@@ -1,4 +1,4 @@
-"""TPU-backend codec surface matching the scalar/native backends.
+"""Device-backend codec surface matching the scalar/native backends.
 
 Single-stream helpers route through the lane-parallel device kernels with
 one lane; the block APIs batch blocks across lanes (the intended use —
@@ -28,8 +28,7 @@ def decode_stream(comp: bytes, params: LzmaParams, out_size: int) -> bytes:
 def encode_alone(data: bytes, params: LzmaParams) -> bytes:
     # EOS-marker streams (unknown-size header, Encoder.java:1182-1184):
     # the lane lowering appends the end-marker token (device_encoder
-    # EOS_DIST) — round-3 closure of the last per-backend capability
-    # asymmetry (VERDICT r2 item 6)
+    # EOS_DIST)
     size = (0xFFFFFFFFFFFFFFFF if params.write_eos else len(data))
     return (
         params.encode_props()
@@ -46,12 +45,12 @@ def decode_alone(data: bytes) -> bytes:
     if out_size == 0xFFFFFFFFFFFFFFFF:
         # EOS-terminated (unknown size): the lane FSM detects the end
         # marker (dist == -1, Decoder.java:277-283) under an expansion
-        # cap that GROWS on overflow (VERDICT r3 item 6): the first
-        # attempt sizes for a typical expansion; a lane that reaches the
-        # cap without the marker raises CapExceededError and retries
-        # 4x bigger (each cap is a pow2 jit bucket) up to the LZMA
-        # expansion bound or the device ceiling — only genuinely corrupt
-        # or over-ceiling streams reach the native/scalar fallback.
+        # cap that GROWS on overflow: the first attempt sizes for a
+        # typical expansion; a lane that reaches the cap without the
+        # marker raises CapExceededError and retries 4x bigger (each cap
+        # is a pow2 jit bucket) up to the LZMA expansion bound or the
+        # device ceiling — only streams whose output cannot fit the
+        # ceiling reach the native/scalar streaming decoders.
         import os
 
         from .device_decoder import CapExceededError
@@ -70,25 +69,10 @@ def decode_alone(data: bytes) -> bytes:
                     break  # valid output cannot fit the ceiling: corrupt
                            # or oversized — the streaming decoders decide
                 cap = min(cap * 4, ceiling)
-            except Exception as e:
-                # loud degradation (VERDICT r2 item 6): a Mosaic/XLA
-                # regression on the device EOS path must be visible, not
-                # silently absorbed by the native fallback
-                import warnings
+        from ..runtime import native
 
-                warnings.warn(
-                    f"device EOS decode failed ({e!r}); falling back to the"
-                    " native/scalar streaming decoder",
-                    stacklevel=2,
-                )
-                break
-        try:
-            from ..runtime import native
-
-            if native.available():
-                return native.decode_alone(data)
-        except Exception:
-            pass
+        if native.available():
+            return native.decode_alone(data)
         from ..codec.decoder import decode_stream as py_decode
 
         return py_decode(data, params, out_size=-1, start=13)
@@ -103,22 +87,18 @@ def encode_blocks(
     data: bytes,
     params: LzmaParams | None = None,
     block_size: int = 1 << 18,
-    use_pallas: bool = False,
     preset_len: int = 0,
     dictionary: bytes = b"",
     parse: str = "lazy",
 ) -> bytes:
     """Lane-parallel block encode to an LZTB container.
 
-    use_pallas routes range coding through the in-VMEM Pallas serializer
-    (ops/pallas_serializer.py) instead of the XLA serializer.
     `preset_len > 0` writes LZTB v2: block 0 plain, every other lane's
     window primed with block 0's prefix.  `dictionary` writes LZTB v3:
     the trained dictionary is stored as its own compressed stream and
     primes EVERY lane.
     parse="optimal" tokenizes with the lane-parallel optimal-parse DP
-    (ops/device_parser) — within ~1% of native bt4-opt compression;
-    preset-primed lanes keep the lazy parse.
+    (ops/device_parser); preset-primed lanes keep the lazy parse.
     """
     params = (params or LzmaParams()).validated_for_encode()
     if params.write_eos:
@@ -132,59 +112,46 @@ def encode_blocks(
     blocks = blk.split_blocks(data, block_size)
     dict_stream = b""
     if dictionary:
-        streams = encode_batch(blocks, params, use_pallas=use_pallas,
-                               preset=dictionary)
-        (dict_stream,) = encode_batch([dictionary], params,
-                                      use_pallas=use_pallas, parse=parse)
+        streams = encode_batch(blocks, params, preset=dictionary)
+        (dict_stream,) = encode_batch([dictionary], params, parse=parse)
     elif preset_len:
-        streams = encode_batch(blocks[:1], params, use_pallas=use_pallas,
-                               parse=parse)
-        streams += encode_batch(blocks[1:], params, use_pallas=use_pallas,
-                                preset=data[:preset_len])
+        streams = encode_batch(blocks[:1], params, parse=parse)
+        streams += encode_batch(blocks[1:], params, preset=data[:preset_len])
     else:
-        streams = (encode_batch(blocks, params, use_pallas=use_pallas,
-                                parse=parse) if blocks else [])
+        streams = (encode_batch(blocks, params, parse=parse)
+                   if blocks else [])
     return blk.build_container(params, block_size, len(data), streams,
                                preset_len, dict_stream, len(dictionary))
 
 
-def decode_blocks(blob, use_pallas: bool = False) -> bytes:
-    """Lane-parallel block decode of an LZTB container.
-
-    use_pallas routes the decode FSM through the ring-window in-VMEM
-    Pallas kernel (ops/pallas_ring.py — O(dict) window per lane, the
-    fastest on-device decoder) instead of the XLA while_loop backend.
-    """
+def decode_blocks(blob) -> bytes:
+    """Lane-parallel block decode of an LZTB container."""
     frame = blk.parse_container(blob)
     n = len(frame.comp_sizes)
     if n == 0:
         return b""
     offsets, sizes = frame.stream_extents(len(blob))
     streams = [bytes(blob[offsets[i] : offsets[i + 1]]) for i in range(n)]
-    if use_pallas:
-        from .pallas_ring import decode_batch_ring as _dec
-    else:
-        _dec = decode_batch
     if frame.dict_len:
         # LZTB v3: decode the (tiny) stored dictionary on one lane, then
         # ALL blocks in parallel against it
-        (dictionary,) = _dec(
+        (dictionary,) = decode_batch(
             [bytes(blob[frame.payload_offset : frame.blocks_offset])],
             frame.params, [frame.dict_len],
         )
-        parts = _dec(streams, frame.params, sizes, preset=dictionary)
+        parts = decode_batch(streams, frame.params, sizes, preset=dictionary)
     elif frame.preset_len:
         # LZTB v2: block 0 decodes plain and IS the preset source; the
         # remaining lanes then decode in parallel against its prefix.
-        head = _dec(streams[:1], frame.params, sizes[:1])
+        head = decode_batch(streams[:1], frame.params, sizes[:1])
         preset = head[0][: frame.preset_len]
         rest = (
-            _dec(streams[1:], frame.params, sizes[1:], preset=preset)
+            decode_batch(streams[1:], frame.params, sizes[1:], preset=preset)
             if n > 1 else []
         )
         parts = head + rest
     else:
-        parts = _dec(streams, frame.params, sizes)
+        parts = decode_batch(streams, frame.params, sizes)
     out = b"".join(parts)
     if len(out) != frame.total_size:
         raise CorruptStreamError("decoded size mismatch")

@@ -1,6 +1,6 @@
 """Lane-parallel LZMA decoder: the decode loop as a vectorized bit FSM.
 
-TPU-first re-architecture of the reference's strictly sequential decode
+Lane-parallel re-architecture of the reference's strictly sequential decode
 loop (Decoder.Code, Decoder.java:205-301).  One stream is bit-serial and
 branchy — hostile to SIMD.  Instead of translating the branch tree, we
 flatten the whole decoder into a finite-state machine in which EVERY
@@ -13,10 +13,11 @@ independent block stream):
     3. FSM transition:       pure select network computing the next
                              phase/registers from (phase, bit)
 
-so a batch of N streams decodes in lock-step under one jit'd
-lax.while_loop with no per-lane control flow.  Model state is the same
-flat probability arena as every other backend ((N, arena) int32 in
-HBM/VMEM), decoded output an (N, max_out) u8 buffer.
+so a batch of N streams decodes in lock-step with no per-lane control
+flow: inside one Pallas-Triton kernel on a GPU (ops/triton_decoder.py),
+as the lax.while_loop decode_fsm_xla elsewhere.  Model state is the same
+flat probability arena as every other backend ((N, arena) int32),
+decoded output an (N, max_out) u8 buffer.
 
 Semantics are bit-exact with the scalar oracle (pinned by
 tests/test_device_decoder.py: decodes scalar/native/liblzma streams).
@@ -43,6 +44,7 @@ from ..core.layout import (
 )
 from ..core.rangecoder import CorruptStreamError
 from ..format.properties import LzmaParams
+from . import kernels
 
 
 class CapExceededError(CorruptStreamError):
@@ -83,8 +85,8 @@ _U32 = jnp.uint32
 
 
 # Closed forms of the 12-state machine (Base.java:16-36) — equivalent to
-# the NEXT_STATE_* tables (asserted below) but free of small-table gathers,
-# which Mosaic cannot lower inside Pallas kernels.
+# the NEXT_STATE_* tables (asserted below) but free of small-table
+# gathers, so the same code runs inside the Triton kernel.
 def _next_lit(state):
     return jnp.where(state < 4, 0, jnp.where(state < 10, state - 3, state - 6))
 
@@ -128,9 +130,9 @@ def _state_struct(n_lanes: int):
 
 # --------------------------------------------------------------------------
 # The FSM's pure pieces, shared between the XLA while_loop backend below and
-# the Pallas in-VMEM kernel (ops/pallas_decoder.py).  Everything here is a
-# select network over per-lane registers — no gathers, no scatters; the
-# backends supply those (probability arena + output window access).
+# the Triton kernel (ops/triton_decoder.py).  Everything here is a select
+# network over per-lane registers — no gathers, no scatters; the backends
+# supply those (probability arena + output window access).
 
 
 def _ctx_index(st, layout, pb, pos_base=0):
@@ -428,6 +430,8 @@ def _transition(st, bit, prev_byte, back_byte, out_sizes, dict_check,
     nphase = jnp.where(nout_pos > bound, PH_ERROR, nphase)  # overran size/cap
     done = ~eos & (nout_pos >= bound) & (nphase == PH_ISMATCH)
     nphase = jnp.where(done, PH_DONE, nphase)
+    # applied last, so a lane only reaches PH_DONE with overrun <= 40 and
+    # a finished lane (which consumes no more input) never flips
     nphase = jnp.where(st["overrun"] > 40, PH_ERROR, nphase)
 
     st2 = dict(
@@ -445,16 +449,18 @@ def _transition(st, bit, prev_byte, back_byte, out_sizes, dict_check,
 
 
 @partial(jax.jit, static_argnames=("lc", "lp", "pb", "max_out", "max_iters"))
-def _decode_fsm(comp, comp_lens, out_sizes, dict_size, lc, lp, pb, max_out,
-                max_iters=0, preset=None):
-    """Decode N padded streams.  comp: (N, max_in) u8.  Returns (out, ok).
+def decode_fsm_xla(comp, comp_lens, out_sizes, dict_size, lc, lp, pb, max_out,
+                   max_iters=0, preset=None):
+    """Decode N padded streams as a lax.while_loop — the plain reference
+    of the Triton kernel.  comp: (N, max_in) u8.  Returns (out, ok,
+    iters, out_pos).
 
     `preset` ((P,) u8 or None) primes every lane's output window with a
     shared dictionary (LZTB v2): the window starts at P, out_sizes must
     then be the ABSOLUTE end positions (P + coded size), and the decoded
     payload sits at out[:, P:].  On a mesh, this replicated array is
     exactly the broadcast the scaling design calls for — XLA moves it to
-    every device over ICI.
+    every device.
     """
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     n_lanes, max_in = comp.shape
@@ -574,7 +580,7 @@ def decode_batch(streams, params: LzmaParams, out_sizes, max_out=None,
     abs_sizes = np.asarray(
         [sz + plen if sz > 0 else sz - plen for sz in out_sizes],
         dtype=np.int32)
-    out, ok, _, out_pos = _decode_fsm(
+    out, ok, _, out_pos = kernels.for_platform().decode_fsm(
         jnp.asarray(comp),
         jnp.asarray(lens),
         jnp.asarray(abs_sizes),

@@ -2,7 +2,7 @@
 
 The reference finds matches with a sequential binary tree that mutates
 global state per position (BinTree.java:152-273) — unvectorizable.  The
-TPU formulation replaces it wholesale:
+lane-parallel formulation replaces it wholesale:
 
   1. hash every 4-byte window (one vector op per byte lane)
   2. group equal hashes by a single stable sort; the previous occurrences
@@ -15,7 +15,7 @@ TPU formulation replaces it wholesale:
      gather + scatter-or) instead of a length-n sequential walk.  Lazy
      deferral (take the longer match at i+1 instead of the one at i) is
      a POINTWISE neighbor compare, so it costs nothing serial: +2.3%
-     ratio on the synthetic corpus (MEASUREMENTS.md)
+     ratio on the synthetic corpus
   5. token stream extracted by prefix-sum compaction
 
 Steps 1-5 are all O(n log n) data-parallel primitives that XLA maps onto
@@ -251,7 +251,7 @@ def tokenize(data, n, dict_size, fb: int, num_candidates: int = 4, start=0,
     `start` > 0 primes the window: data[:start] is a preset dictionary —
     searched as match history but never emitted as tokens.  `lazy`
     (default) defers a match when the next position holds a longer one —
-    still fully parallel, measurably better ratio (MEASUREMENTS.md).
+    still fully parallel, measurably better ratio (DESIGN-NOTES.md).
     Returns (t_pos, t_len, t_dist, t_valid): (max_n,) each — token i covers
     data[t_pos[i] : t_pos[i]+t_len[i]]; t_len==1 & t_dist<0 => literal.
     Tokens are compacted to the front; t_valid marks real tokens.
@@ -351,7 +351,7 @@ def _tier_candidates(data, n, pos, max_n: int, k4, k8, k2=1, k3=1,
 def find_match_lists(data, n, dict_size, fb: int, k4=4, k8=2,
                      k2=1, k3=1, k6=0, k16=0, k32=0):
     """Multi-tier ascending (len, dist) candidate lists per position — the
-    device half of the hybrid-OPTIMAL pipeline (VERDICT r1 item 3).
+    device half of the hybrid-OPTIMAL pipeline.
 
     Tiers (mirroring BT4's sub-hash structure, BinTree.java:170-208):
       2-byte exact (k2 nearest), 3-byte exact (k3 nearest), 4-byte hash
@@ -424,7 +424,7 @@ def _suffix_rank_lcp(data, n, pos, max_n: int, depth: int):
     depth <= 32: one lexsort over the packed 32-byte prefix words, with
     consecutive-LCP from word XOR + clz — all elementwise.
 
-    depth > 32 (round 5, VERDICT item 4): prefix DOUBLING extends the
+    depth > 32: prefix DOUBLING extends the
     exact order to any depth without widening the sort keys — each
     round is ONE 2-key lexsort over (rank_t[i], rank_t[i + 32<<t]),
     where the shifted rank is an elementwise roll.  Consecutive LCP at
@@ -557,9 +557,7 @@ def find_match_lists_rmq(data, n, dict_size, fb: int, k4=4, k8=2,
     suffix-rank LCP range-min queries: identical tier structure and
     IDENTICAL lists at ANY fb (round 5: prefix doubling extends the
     exact sort depth past 32, see _suffix_rank_lcp), at ~1/fb-th the
-    gather volume — the round-4 fix for the measured ~9 ns/element
-    gather cost that made the compare loop the whole pipeline
-    (MEASUREMENTS.md hazard v2).
+    gather volume of the compare loop.
 
     Candidates are DE-DUPLICATED across tiers before the LCP queries
     (the deep ladder re-finds ~40% of its candidates through multiple
@@ -569,8 +567,8 @@ def find_match_lists_rmq(data, n, dict_size, fb: int, k4=4, k8=2,
     m_cap nearest before the queries — the right-sizing knob for the
     DP pipeline, which consumes only ~4 merged pairs/position; this CAN
     drop far candidates, so it stays 0 (off) for the exact-parity
-    hybrid path and is set from the measured ratio/speed knee for the
-    DP (MEASUREMENTS.md round 5)."""
+    hybrid path and is set from the measured ratio knee for the DP
+    (DESIGN-NOTES.md "Ratio knees")."""
     return _rmq_search(data, n, dict_size, fb, k4, k8, k2, k3, k6, k16,
                        k32, m_cap, m_cap_order)[:3]
 
@@ -586,8 +584,8 @@ def _rmq_search(data, n, dict_size, fb: int, k4=4, k8=2,
     m_cap_order picks which uniques survive a truncation: "near" keeps
     the m_cap nearest; "rr" keeps by round-robin tier priority (every
     tier's rank-1 candidate first, then rank-2, ...) so the deep-tier
-    long-match finders survive crowded rows — measured ratio/speed in
-    MEASUREMENTS.md round 5."""
+    long-match finders survive crowded rows (DESIGN-NOTES.md "Ratio
+    knees")."""
     max_n = data.shape[0]
     pos = jnp.arange(max_n, dtype=jnp.int32)
     depth = fb
@@ -699,9 +697,9 @@ def find_match_lists_lcp(data, n, dict_size, fb: int, k: int = 4):
     """GATHER-FREE candidate lists via suffix-order consecutive LCP.
 
     The tier searcher's per-candidate byte-compare loop gathers
-    O(positions x tiers x fb) elements — at the measured ~9 ns/element
-    TPU gather cost that is the whole pipeline (MEASUREMENTS.md round-4
-    hazard v2).  This formulation never compares bytes per candidate:
+    O(positions x tiers x fb) elements; where gathers are slow that is
+    the whole pipeline.  This formulation never compares bytes per
+    candidate:
 
       1. pack each position's 32-byte prefix into 8 big-endian words
          (elementwise rolls/shifts)

@@ -2,9 +2,9 @@
 
 The reference's getOptimum (Encoder.java:364-811) is a serial
 dynamic program whose prices come from live adaptive probabilities.
-The TPU formulation keeps only the position order serial — ONE
-lax.fori_loop over block positions — and moves everything else into
-vector work across lanes:
+The lane-parallel formulation keeps only the position order serial —
+ONE loop over block positions — and moves everything else into vector
+work across lanes:
 
   pass A   lazy tokenize + bit lowering (the existing GB/s pipeline:
            device_matcher.tokenize -> classify_tokens -> lower_tokens)
@@ -158,7 +158,7 @@ def build_price_model(data, probs, lc: int, lp: int, pb: int, fb: int,
     data: (L, N) u8; probs: (L, S); r0pos: (L, N) rep0-by-position trace
     (enables matched-mode literal pricing for after-match states).
     Returns a dict of jnp arrays (see dp_parse).  Everything here is
-    embarrassingly parallel — the TPU analogue of FillDistancesPrices /
+    embarrassingly parallel — the lane-parallel analogue of FillDistancesPrices /
     FillAlignPrices / UpdateTable."""
     layout = ProbLayout(lc, lp, pb, pos_bits=pb)
     PT = jnp.asarray(PRICE_TABLE)
@@ -524,26 +524,23 @@ def dp_parse(data, lens, ld, dd, model, fb: int, pb: int,
 
     price, from_, choice, rkind, state, reps = jax.lax.fori_loop(
         0, N, step, (price, from_, choice, rkind, state, reps))
-    return price, from_, choice, rkind
+    return from_, choice
 
 
 @partial(jax.jit, static_argnames=("fb", "pb", "full_len_only"))
 def dp_parse_band(data, lens, ld, dd, model, fb: int, pb: int,
                   full_len_only: bool = False, r0pos=None, replen=None):
-    """dp_parse restructured for the TPU memory hierarchy.
+    """dp_parse restructured as a band scan: the XLA plain reference of
+    dp_parse_triton.
 
     The DP is BANDED: every read/write at step i lands within fb columns
     of i.  The naive formulation (dp_parse) dynamic-slices ~25 (L, N)
-    HBM planes per step — each a serialized HBM round trip, measured
-    ~150 us/step through this rig.  Here the live state is two small
-    rolling bands (future window + finalized history, O(L x fb) each),
-    the per-position tables are packed into ONE (N, L, C) array the loop
+    planes per step.  Here the live state is two small rolling bands
+    (future window + finalized history, O(L x fb) each), the
+    per-position tables are packed into ONE (N, L, C) array the loop
     reads once per step, one packed (from, choice) row is written back
-    per step, and EVERY in-loop gather/select is a one-hot masked
-    contraction (fusable vector math — a data-dependent gather is a
-    fusion barrier on TPU, and Mosaic's take_along_axis is broken
-    anyway, MEASUREMENTS.md round-2 finding 4).  Identical output to
-    dp_parse."""
+    per step, and every in-loop select is a one-hot masked contraction.
+    Identical output to dp_parse."""
     L, N = data.shape
     M = ld.shape[2]
     W = fb - 1                        # relax lengths 2..fb
@@ -801,110 +798,111 @@ def _pack_inputs(data, ld, dd, dcost, model, r0pos, replen, fb):
     return jnp.moveaxis(jnp.concatenate(parts, axis=2), 1, 2)    # (N, C, L)
 
 
-def dp_parse_pallas(data, lens, ld, dd, model, fb: int, pb: int,
+#: dp_parse_triton's program shape: lanes per program and warps — the
+#: fastest of 4x1, 8x1, 8x2 and 32x4 at 24 x 128 KiB on the H100
+#: (PERF.md): more, shorter programs beat wider ones
+DP_KERNEL_LANES = 4
+DP_KERNEL_WARPS = 1
+
+
+def _ring_rows(fb: int) -> int:
+    """Ring depth of the kernel's bands: a power of two > fb, so the
+    fb + 1 nodes each band holds at step i (i .. i+fb in the future
+    band, i-fb .. i in the history) never share a row."""
+    return 1 << fb.bit_length()
+
+
+@partial(jax.jit, static_argnames=("fb", "pb", "full_len_only",
+                                   "interpret"))
+def dp_parse_triton(data, lens, ld, dd, model, fb: int, pb: int,
                     full_len_only: bool = False, r0pos=None, replen=None,
-                    chunk: int = 8, interpret: bool = False):
-    """The DP scan as ONE Pallas kernel (the production pass C).
+                    interpret: bool = False):
+    """The DP scan as one Pallas-Triton kernel (GPU).  Output is
+    identical to dp_parse_band.
 
-    The XLA while-loop forms (dp_parse / dp_parse_band) cost ~100 us per
-    position on this TPU runtime — per-iteration loop overhead, same
-    magnitude as the retired XLA range-coder FSMs.  Here the whole scan
-    is a single Mosaic kernel: the rolling bands live in VMEM scratch
-    persisting across a sequential grid over position chunks, each grid
-    step streams one (chunk, C, L) packed-input block in and one
-    (chunk, 2, L) result block out, and every select is explicit masked
-    math (no gathers, no cumsum/argmin — small unrolled loops instead:
-    Mosaic lowers none of those reliably).  Output is identical to
-    dp_parse / dp_parse_band.
+    The XLA band form pays a chain of kernel launches per position.
+    Here one program scans all positions of DP_KERNEL_LANES lanes,
+    lanes last (the last program masks the lanes past L; nothing is
+    padded):
 
-    Layouts are lanes-LAST ((…, L)) so the VPU vectorizes across lanes
-    — the same convention as ops/pallas_ring.py."""
+      * the future band (price, from offset, choice, kind) and the
+        finalized history (state, 4 reps) are loop-carried register
+        tiles of shape (R, DP_KERNEL_LANES), R = _ring_rows(fb).  Node
+        j lives in row j mod R, so advancing a position moves nothing:
+        node i's row is read, relaxed from and reset to the empty node;
+      * per-position inputs come from the packed (N, C, L) array
+        (_pack_inputs), one load per field;
+      * prices indexed by (posState, state) and the length tables are
+        read by indexed loads, not one-hot contractions.
+
+    Every buffer is int32 and indexed by its dimensions, so Pallas
+    computes the offsets (in 64 bits for buffers past 4 GiB).
+    """
     from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
     L, N = data.shape
     M = ld.shape[2]
     W = fb - 1
-    B = fb + 1
-    H = fb
+    R = _ring_rows(fb)
     pmask = (1 << pb) - 1
-    n_ps = 1 << pb
+    LB = DP_KERNEL_LANES
+    i32 = jnp.int32
 
     dcost = _pair_dist_cost(model, dd, (ld >= 2) & (dd >= 0))
-    packed = _pack_inputs(data, ld, dd, dcost, model, r0pos, replen, fb)
-    C = packed.shape[1]
-    CK = max(1, chunk)
-    NP = -(-N // CK) * CK
-    if NP > N:
-        packed = jnp.pad(packed, ((0, NP - N), (0, 0), (0, 0)))
-    grid = NP // CK                # CK positions per sequential grid step
+    packed = _pack_inputs(data, ld, dd, dcost, model, r0pos, replen,
+                          fb).astype(i32)                        # (N, C, L)
+    ltm = jnp.transpose(model["lt_match"][:, :, :W], (1, 2, 0)).astype(i32)
+    ltr = jnp.transpose(model["lt_rep"][:, :, :W], (1, 2, 0)).astype(i32)
+    # per-(posState, state) flag prices: (n_ps, 12, L) each, stacked
+    flags = jnp.stack(
+        [jnp.transpose(model[k], (2, 1, 0))
+         for k in ("im0", "im1", "r0l0", "r0l1")]).astype(i32)  # (4, n_ps, 12, L)
+    st_tabs = jnp.concatenate(
+        [model["ir0"].T[None], model["ir1"].T[None],
+         jnp.transpose(model["rep_sel"], (1, 2, 0))]).astype(i32)  # (6, 12, L)
 
-    ltm_ps = jnp.transpose(model["lt_match"][:, :, :W], (1, 2, 0))  # (n_ps, W, L)
-    ltr_ps = jnp.transpose(model["lt_rep"][:, :, :W], (1, 2, 0))
-    im0_ps = jnp.transpose(model["im0"], (2, 1, 0))              # (n_ps, 12, L)
-    im1_ps = jnp.transpose(model["im1"], (2, 1, 0))
-    r0l0_ps = jnp.transpose(model["r0l0"], (2, 1, 0))
-    r0l1_ps = jnp.transpose(model["r0l1"], (2, 1, 0))
-    ir0_t = model["ir0"].T                                       # (12, L)
-    ir1_t = model["ir1"].T
-    sel_t = jnp.transpose(model["rep_sel"], (1, 2, 0))           # (4, 12, L)
-    lens_t = lens[None, :].astype(jnp.int32)                     # (1, L)
+    def kernel(inp_ref, ltm_ref, ltr_ref, flag_ref, st_ref, lens_ref,
+               out_ref):
+        lane = pl.program_id(0) * LB + jnp.arange(LB, dtype=i32)
+        real = lane < L
+        rowid = jnp.arange(R, dtype=i32)[:, None]                # (R, 1)
+        lens_l = plgpu.load(lens_ref.at[lane], mask=real, other=0)
 
-    def kernel(inp_ref, ltm_ref, ltr_ref, im0_ref, im1_ref, r0l0_ref,
-               r0l1_ref, ir0_ref, ir1_ref, sel_ref, lens_ref,
-               out_ref, tail_ref,
-               bp_ref, bf_ref, bc_ref, bk_ref, hst_ref, hrp_ref):
-        c = pl.program_id(0)
-        # index vectors built in-kernel (captured tracers are rejected)
-        s12 = jax.lax.broadcasted_iota(jnp.int32, (12, 1), 0)
-        lvec_c = jax.lax.broadcasted_iota(jnp.int32, (W, 1), 0) + 2
-        hvec = jax.lax.broadcasted_iota(jnp.int32, (H, 1), 0)
+        def row_of(tile, r):                                     # r: scalar or (LB,)
+            return jnp.sum(jnp.where(rowid == r, tile, 0), axis=0)
 
-        @pl.when(c == 0)
-        def _init():
-            bp_ref[...] = jnp.concatenate(
-                [jnp.zeros((1, L), jnp.int32),
-                 jnp.full((B - 1, L), INF, jnp.int32)], axis=0)
-            bf_ref[...] = jnp.zeros((B, L), jnp.int32)
-            bc_ref[...] = jnp.full((B, L), -1, jnp.int32)
-            bk_ref[...] = jnp.full((B, L), RK_LIT, jnp.int32)
-            hst_ref[...] = jnp.zeros((H, L), jnp.int32)
-            hrp_ref[...] = jnp.zeros((4, H, L), jnp.int32)
+        def field(i, j):
+            return plgpu.load(inp_ref.at[i, j, lane], mask=real, other=0)
 
-        lens_l = lens_ref[0]                                     # (L,)
+        def flag(t, ps, st):
+            return plgpu.load(flag_ref.at[t, ps, st, lane], mask=real,
+                              other=0)
 
-        bp = bp_ref[...]
-        bf = bf_ref[...]
-        bc = bc_ref[...]
-        bk = bk_ref[...]
-        hst = hst_ref[...]
-        hrp = hrp_ref[...]
-        outs = []
-        # CK positions per grid step, row indices STATICALLY unrolled (a
-        # traced row index lowers to a one-hot select over the block);
-        # the block DMA amortizes across the CK sub-steps and the band
-        # state flows through locals, touching scratch refs once per
-        # grid step
-        for j in range(CK):
-            i = c * CK + j
-            row = inp_ref[j]
-            ld_i = row[0:M]                                      # (M, L)
-            dd_i = row[M:2 * M]
-            # (distance costs are read as 2D row slices in the relax
-            # section — a 3D reshape+slice would lower as a >2D gather)
-            lit_i = row[6 * M]
-            mlit_i = row[6 * M + 1]
-            r0p_i = row[6 * M + 2]
-            rl_i = row[6 * M + 3]
-            sr_eq_i = row[6 * M + 4]
+        def st_tab(t, st):
+            return plgpu.load(st_ref.at[t, st, lane], mask=real, other=0)
 
+        def put_row(tile, r, val, mask=True):
+            return jnp.where((rowid == r) & mask, val[None, :], tile)
+
+        def step(i, carry):
+            bp, bf, bc, bk, hst, h0, h1, h2, h3 = carry
+            ri = i & (R - 1)
             ps = i & pmask
+            ld_i = [field(i, m) for m in range(M)]
+            dd_i = [field(i, M + m) for m in range(M)]
+            lit_i = field(i, 6 * M)
+            mlit_i = field(i, 6 * M + 1)
+            r0p_i = field(i, 6 * M + 2)
+            rl_i = field(i, 6 * M + 3)
+            sr_eq_i = field(i, 6 * M + 4)
 
-            # --- finalize node i ---
-            p_i, d_i, c_i, k_i = bp[0], bf[0], bc[0], bk[0]      # (L,)
-            ohh = (hvec == jnp.clip(d_i - 1, 0, H - 1)[None, :]).astype(
-                jnp.int32)                                       # (H, L)
-            st_prev = jnp.sum(hst * ohh, axis=0)
-            r_prev = jnp.sum(hrp * ohh[None], axis=1)            # (4, L)
+            # --- finalize node i from its predecessor ---
+            p_i, d_i = row_of(bp, ri), row_of(bf, ri)
+            c_i, k_i = row_of(bc, ri), row_of(bk, ri)
+            hrow = (i - 1 - jnp.clip(d_i - 1, 0, fb - 1)) & (R - 1)
+            st_prev = row_of(hst, hrow)
+            r_prev = [row_of(h, hrow) for h in (h0, h1, h2, h3)]
             is_lit_e = k_i == RK_LIT
             is_sr_e = k_i == RK_SHORTREP
             is_rep_e = (k_i >= 0) & (k_i < 4)
@@ -914,46 +912,32 @@ def dp_parse_pallas(data, lens, ld, dd, model, fb: int, pb: int,
                           jnp.where(is_rep_e, _next_longrep(st_prev),
                                     _next_match(st_prev))))
             kk = jnp.clip(k_i, 0, 3)
-            picked = jnp.zeros((L,), jnp.int32)
-            for m in range(4):
-                picked = jnp.where(kk == m, r_prev[m], picked)
-            n0 = jnp.where(is_rep_e, picked,
-                           jnp.where(k_i == RK_MATCH, c_i, r_prev[0]))
-            n1 = jnp.where((is_rep_e & (kk >= 1)) | (k_i == RK_MATCH),
-                           r_prev[0], r_prev[1])
-            n2 = jnp.where((is_rep_e & (kk >= 2)) | (k_i == RK_MATCH),
-                           r_prev[1], r_prev[2])
-            n3 = jnp.where((is_rep_e & (kk >= 3)) | (k_i == RK_MATCH),
-                           r_prev[2], r_prev[3])
-            at0 = i == 0
-            st_i = jnp.where(at0, 0, st_i)
-            r_i = jnp.where(at0, 0, jnp.stack([n0, n1, n2, n3]))  # (4, L)
+            picked = jnp.where(kk == 0, r_prev[0],
+                               jnp.where(kk == 1, r_prev[1],
+                                         jnp.where(kk == 2, r_prev[2],
+                                                   r_prev[3])))
+            is_m = k_i == RK_MATCH
+            r_i = [jnp.where(is_rep_e, picked, jnp.where(is_m, c_i, r_prev[0])),
+                   jnp.where((is_rep_e & (kk >= 1)) | is_m, r_prev[0], r_prev[1]),
+                   jnp.where((is_rep_e & (kk >= 2)) | is_m, r_prev[1], r_prev[2]),
+                   jnp.where((is_rep_e & (kk >= 3)) | is_m, r_prev[2], r_prev[3])]
+            first = i == 0
+            st_i = jnp.where(first, 0, st_i)
+            r_i = [jnp.where(first, 0, r) for r in r_i]
 
-            # emit node i
-            outs.append(jnp.stack([i - d_i, c_i]))
+            plgpu.store(out_ref.at[i, 0, lane], i - d_i, mask=real)
+            plgpu.store(out_ref.at[i, 1, lane], c_i, mask=real)
 
             live = i < lens_l
-            ohst = (s12 == st_i[None, :]).astype(jnp.int32)      # (12, L)
-            ohps = [ps == q for q in range(n_ps)]
+            f_im0 = flag(0, ps, st_i)
+            f_im1 = flag(1, ps, st_i)
+            f_r0l0 = flag(2, ps, st_i)
+            f_r0l1 = flag(3, ps, st_i)
+            f_ir0 = st_tab(0, st_i)
+            f_ir1 = st_tab(1, st_i)
+            f_sel = [st_tab(2 + r, st_i) for r in range(4)]
 
-            def by_ps(ref):
-                acc = jnp.zeros(ref.shape[1:], jnp.int32)
-                for q in range(n_ps):
-                    acc = jnp.where(ohps[q], ref[q], acc)
-                return acc
-
-            def at_st(tab):                                      # (12, L) -> (L,)
-                return jnp.sum(tab * ohst, axis=0)
-
-            f_im0 = at_st(by_ps(im0_ref))
-            f_im1 = at_st(by_ps(im1_ref))
-            f_r0l0 = at_st(by_ps(r0l0_ref))
-            f_r0l1 = at_st(by_ps(r0l1_ref))
-            f_ir0 = at_st(ir0_ref[...])
-            f_ir1 = at_st(ir1_ref[...])
-            f_sel = jnp.sum(sel_ref[...] * ohst[None], axis=1)   # (4, L)
-
-            # --- literal / shortRep -> col 1 ---
+            # --- literal / shortRep edge -> node i+1 ---
             lcost = jnp.where(st_i >= 7, mlit_i, lit_i)
             cand_l = p_i + f_im0 + lcost
             sr_ok = (sr_eq_i > 0) & (r_i[0] == r0p_i)
@@ -961,455 +945,111 @@ def dp_parse_pallas(data, lens, ld, dd, model, fb: int, pb: int,
                 sr_ok, p_i + f_im1 + f_ir1 + f_sel[0] + f_r0l0, INF)
             use_sr = cand_sr < cand_l
             cand1 = jnp.minimum(cand_l, cand_sr)
-            imp = live & (cand1 < bp[1])
-            c1_p = jnp.where(imp, cand1, bp[1])
-            c1_f = jnp.where(imp, 1, bf[1])
-            c1_c = jnp.where(imp, jnp.where(use_sr, r_i[0], -1), bc[1])
-            c1_k = jnp.where(imp, jnp.where(use_sr, RK_SHORTREP, RK_LIT),
-                             bk[1])
+            r1 = (i + 1) & (R - 1)
+            imp = live & (cand1 < row_of(bp, r1))
+            bp = put_row(bp, r1, cand1, imp[None, :])
+            bf = put_row(bf, r1, jnp.ones_like(cand1), imp[None, :])
+            bc = put_row(bc, r1, jnp.where(use_sr, r_i[0], -1), imp[None, :])
+            bk = put_row(bk, r1, jnp.where(use_sr, RK_SHORTREP, RK_LIT),
+                         imp[None, :])
 
-            # --- match / rep relax, explicit min over MX sources ---
-            ld_c = jnp.minimum(ld_i, jnp.maximum(lens_l - i, 0)[None, :])
-            pv = (ld_c >= 2) & (dd_i >= 0) & live[None, :]
+            # --- match / rep relax: ring row r holds node i + k ---
+            k = (rowid - i) & (R - 1)                            # (R, 1)
+            in_win = (k >= 2) & (k <= fb)
+            lt_at = (jnp.broadcast_to(ps, (R, LB)),
+                     jnp.broadcast_to(jnp.clip(k - 2, 0, W - 1), (R, LB)),
+                     jnp.broadcast_to(lane[None, :], (R, LB)))
+            win_mask = in_win & real[None, :]
+            ltm_t = plgpu.load(ltm_ref.at[lt_at], mask=win_mask, other=0)
+            ltr_t = plgpu.load(ltr_ref.at[lt_at], mask=win_mask, other=0)
+            lps = jnp.minimum(k - 2, 3)
             mbase = p_i + f_im1 + f_ir0
             rep_head = p_i + f_im1 + f_ir1
-            rep_base = [rep_head + f_sel[0] + f_r0l1,
-                        rep_head + f_sel[1],
-                        rep_head + f_sel[2],
-                        rep_head + f_sel[3]]
-            ltm = by_ps(ltm_ref)                                 # (W, L)
-            ltr = by_ps(ltr_ref)
+            rep_base = [rep_head + f_sel[0] + f_r0l1, rep_head + f_sel[1],
+                        rep_head + f_sel[2], rep_head + f_sel[3]]
+            rem = jnp.maximum(lens_l - i, 0)
 
-            # Tensorized over the M pairs — one (M, 4, L)/(W, M, L) op
-            # chain instead of a per-pair python loop.  Measured NEUTRAL
-            # on chip (18.0 vs 16.5 us/step, inside the ±8% band) — the
-            # step floor is neither DMA, nor lanes, nor op count; kept
-            # for the smaller op graph (MEASUREMENTS.md round 4)
-            eq = dd_i[:, None, :] == r_i[None, :, :]             # (M, 4, L)
-            any_eq = jnp.any(eq, axis=1)                         # (M, L)
-            rix = jnp.where(eq[:, 0], 0,
-                            jnp.where(eq[:, 1], 1,
-                                      jnp.where(eq[:, 2], 2, 3)))
-            rb_t = jnp.stack(rep_base)                           # (4, L)
-            rb = jnp.where(rix == 0, rb_t[0],
-                           jnp.where(rix == 1, rb_t[1],
-                                     jnp.where(rix == 2, rb_t[2], rb_t[3])))
-            # distance part per relax length (lps saturates at l>=5);
-            # built from 2D row slices — any 3D mid-axis slice/transpose
-            # lowers as a >2D gather, which Mosaic rejects
-            def dc_q(q):                                         # (M, L)
-                return jnp.stack([row[2 * M + 4 * m + q]
-                                  for m in range(M)])
-
-            dc_sat = dc_q(3)
-            dc_l = (jnp.concatenate(
-                [jnp.stack([dc_q(0), dc_q(1), dc_q(2)]),
-                 jnp.broadcast_to(dc_sat[None], (W - 3, M, L))],
-                axis=0) if W > 3
-                else jnp.stack([dc_q(q) for q in range(W)]))     # (W, M, L)
-            cost = jnp.where(any_eq[None, :, :],
-                             rb[None, :, :] + ltr[:, None, :],
-                             mbase[None, None, :] + dc_l
-                             + ltm[:, None, :])                  # (W, M, L)
-            lm = lvec_c[:, None, :] <= ld_c[None, :, :]
-            if full_len_only:
-                lm = lm & (lvec_c[:, None, :] == ld_c[None, :, :])
-            cost = jnp.where(lm & pv[None, :, :], cost, INF)
-            kind_t = jnp.where(any_eq, rix, RK_MATCH)            # (M, L)
-
-            best = jnp.full((W, L), INF, jnp.int32)
-            bdist = jnp.zeros((W, L), jnp.int32)
-            bkind = jnp.full((W, L), RK_MATCH, jnp.int32)
+            best = bdist = bkind = None
             for m in range(M):
-                better = cost[:, m] < best
-                best = jnp.where(better, cost[:, m], best)
-                bdist = jnp.where(better, dd_i[m][None, :], bdist)
-                bkind = jnp.where(better, kind_t[m][None, :], bkind)
-            if r0pos is not None:
-                rl_c = jnp.minimum(rl_i, jnp.maximum(lens_l - i, 0))
-                rep0_ok = live & (r_i[0] == r0p_i) & (rl_c >= 2)
-                cost0 = jnp.where(
-                    rep0_ok[None, :] & (lvec_c <= rl_c[None, :]),
-                    rep_base[0][None, :] + ltr, INF)
-                better = cost0 < best
-                best = jnp.where(better, cost0, best)
-                bdist = jnp.where(better, r0p_i[None, :], bdist)
-                bkind = jnp.where(better, 0, bkind)
+                ld_c = jnp.minimum(ld_i[m], rem)
+                pv = (ld_c >= 2) & (dd_i[m] >= 0) & live
+                eq = [dd_i[m] == r for r in r_i]
+                any_eq = eq[0] | eq[1] | eq[2] | eq[3]
+                rix = jnp.where(eq[0], 0, jnp.where(eq[1], 1,
+                                                    jnp.where(eq[2], 2, 3)))
+                is_rep = pv & any_eq
+                prb = jnp.where(eq[0], rep_base[0],
+                                jnp.where(eq[1], rep_base[1],
+                                          jnp.where(eq[2], rep_base[2],
+                                                    jnp.where(eq[3], rep_base[3], 0))))
+                dq = [field(i, 2 * M + 4 * m + q) for q in range(4)]
+                dc_l = jnp.where(lps <= 0, dq[0][None, :],
+                                 jnp.where(lps == 1, dq[1][None, :],
+                                           jnp.where(lps == 2, dq[2][None, :],
+                                                     dq[3][None, :])))
+                cost = jnp.where(is_rep[None, :], prb[None, :] + ltr_t,
+                                 mbase[None, :] + dc_l + ltm_t)
+                lm = k <= ld_c[None, :]
+                if full_len_only:
+                    lm = lm & (k == ld_c[None, :])
+                cost = jnp.where(lm & pv[None, :] & in_win, cost, INF)
+                kind = jnp.where(is_rep, rix, RK_MATCH)
+                if best is None:
+                    best = cost
+                    bdist = jnp.broadcast_to(dd_i[m][None, :], (R, LB))
+                    bkind = jnp.broadcast_to(kind[None, :], (R, LB))
+                else:
+                    better = cost < best
+                    best = jnp.where(better, cost, best)
+                    bdist = jnp.where(better, dd_i[m][None, :], bdist)
+                    bkind = jnp.where(better, kind[None, :], bkind)
+            # rep0-continuation edge from the traced rep0 length
+            rl_c = jnp.minimum(rl_i, rem)
+            rep0_ok = live & (r_i[0] == r0p_i) & (rl_c >= 2)
+            cost0 = jnp.where(rep0_ok[None, :] & (k <= rl_c[None, :]) & in_win,
+                              rep_base[0][None, :] + ltr_t, INF)
+            better = cost0 < best
+            best = jnp.where(better, cost0, best)
+            bdist = jnp.where(better, r0p_i[None, :], bdist)
+            bkind = jnp.where(better, 0, bkind)
 
-            win = bp[2:2 + W]
-            impw = best < win
-            w_p = jnp.where(impw, best, win)
-            w_f = jnp.where(impw, jnp.broadcast_to(lvec_c, (W, L)),
-                            bf[2:2 + W])
-            w_c = jnp.where(impw, jnp.maximum(bdist, 0), bc[2:2 + W])
-            w_k = jnp.where(impw, bkind, bk[2:2 + W])
+            impw = best < bp
+            bp = jnp.where(impw, best, bp)
+            bf = jnp.where(impw, k, bf)
+            bc = jnp.where(impw, jnp.maximum(bdist, 0), bc)
+            bk = jnp.where(impw, bkind, bk)
 
-            # --- advance: relax results fused with the 1-col shift
-            # (col0 retires; fresh INF col enters) — pure concatenation,
-            # no .at[] (scatter does not lower in Mosaic) ---
-            bp = jnp.concatenate(
-                [c1_p[None], w_p, jnp.full((1, L), INF, jnp.int32)], axis=0)
-            bf = jnp.concatenate(
-                [c1_f[None], w_f, jnp.zeros((1, L), jnp.int32)], axis=0)
-            bc = jnp.concatenate(
-                [c1_c[None], w_c, jnp.full((1, L), -1, jnp.int32)], axis=0)
-            bk = jnp.concatenate(
-                [c1_k[None], w_k, jnp.full((1, L), RK_LIT, jnp.int32)],
-                axis=0)
-            hst = jnp.concatenate([st_i[None], hst[:-1]], axis=0)
-            hrp = jnp.concatenate(
-                [r_i[:, None, :], hrp[:, :-1, :]], axis=1)
+            # --- node i retires: its row becomes the empty node i + R ---
+            at_i = rowid == ri
+            bp = jnp.where(at_i, INF, bp)
+            bf = jnp.where(at_i, 0, bf)
+            bc = jnp.where(at_i, -1, bc)
+            bk = jnp.where(at_i, RK_LIT, bk)
+            hst = put_row(hst, ri, st_i)
+            h0, h1, h2, h3 = (put_row(h, ri, r)
+                              for h, r in zip((h0, h1, h2, h3), r_i))
+            return (bp, bf, bc, bk, hst, h0, h1, h2, h3)
 
-        out_ref[...] = jnp.stack(outs)
-        bp_ref[...] = bp
-        bf_ref[...] = bf
-        bc_ref[...] = bc
-        bk_ref[...] = bk
-        hst_ref[...] = hst
-        hrp_ref[...] = hrp
+        zeros = jnp.zeros((R, LB), jnp.int32)
+        init = (jnp.where(rowid == 0, 0, jnp.full((R, LB), INF, jnp.int32)),
+                zeros, jnp.full((R, LB), -1, jnp.int32),
+                jnp.full((R, LB), RK_LIT, jnp.int32),
+                zeros, zeros, zeros, zeros, zeros)
+        bp, bf, bc, *_ = jax.lax.fori_loop(0, N, step, init)
+        rn = N & (R - 1)
+        plgpu.store(out_ref.at[N, 0, lane], N - row_of(bf, rn), mask=real)
+        plgpu.store(out_ref.at[N, 1, lane], row_of(bc, rn), mask=real)
 
-        @pl.when(c == grid - 1)
-        def _tail():
-            # node NP == band col 0 after the last step; NP == N when N is
-            # chunk-aligned, else node N was already emitted in its chunk
-            tail_ref[...] = jnp.stack([NP - bf_ref[0], bc_ref[0]])
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    out, tail = pl.pallas_call(
+    out = pl.pallas_call(
         kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((CK, C, L), lambda c: (c, 0, 0)),
-            pl.BlockSpec((n_ps, W, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, W, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((12, L), lambda c: (0, 0)),
-            pl.BlockSpec((12, L), lambda c: (0, 0)),
-            pl.BlockSpec((4, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((1, L), lambda c: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((CK, 2, L), lambda c: (c, 0, 0)),
-            pl.BlockSpec((2, L), lambda c: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((NP, 2, L), jnp.int32),
-            jax.ShapeDtypeStruct((2, L), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, L), jnp.int32),       # bp
-            pltpu.VMEM((B, L), jnp.int32),       # bf
-            pltpu.VMEM((B, L), jnp.int32),       # bc
-            pltpu.VMEM((B, L), jnp.int32),       # bk
-            pltpu.VMEM((H, L), jnp.int32),       # hstate
-            pltpu.VMEM((4, H, L), jnp.int32),    # hreps
-        ],
+        grid=(pl.cdiv(L, LB),),
+        out_shape=jax.ShapeDtypeStruct((N + 1, 2, L), i32),
+        compiler_params=plgpu.CompilerParams(num_warps=DP_KERNEL_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(packed, ltm_ps, ltr_ps, im0_ps, im1_ps, r0l0_ps, r0l1_ps,
-      ir0_t, ir1_t, sel_t, lens_t)
-
-    # assemble (L, N+1) from/choice planes; node N comes from the tail
-    # when N is chunk-aligned (otherwise it was emitted in its chunk)
-    from_abs = jnp.moveaxis(out[:, 0, :], 0, 1)                  # (L, NP)
-    choice = jnp.moveaxis(out[:, 1, :], 0, 1)
-    if NP == N:
-        from_abs = jnp.concatenate([from_abs, tail[0][:, None]], axis=1)
-        choice = jnp.concatenate([choice, tail[1][:, None]], axis=1)
-    else:
-        from_abs = from_abs[:, :N + 1]
-        choice = choice[:, :N + 1]
-    return from_abs, choice
-
-
-def dp_parse_pallas2(data, lens, ld, dd, model, fb: int, pb: int,
-                     full_len_only: bool = False, r0pos=None, replen=None,
-                     chunk: int = 8, interpret: bool = False):
-    """dp_parse_pallas with the FINALIZE phase dissolved into the relax
-    (round 5, VERDICT item 7 — the 'alternating phases' chain-shortening
-    experiment, realized as band-carried node state): every band column
-    carries the node's (state, rep set), computed at RELAX time from
-    the already-final node i — the per-step history band, its H-wide
-    one-hot contractions, and the serial finalize->flag-price chain all
-    disappear; a step starts by just READING col 0.  The resulting
-    state/reps of an edge depend only on (state_i, kind, dist), so the
-    per-column vector form is ~8 extra (W, L) ops against ~5 removed
-    (H, L) contractions + the finalize chain.  Output must be identical
-    to dp_parse_band (asserted by tests)."""
-    from jax.experimental import pallas as pl
-
-    L, N = data.shape
-    M = ld.shape[2]
-    W = fb - 1
-    B = fb + 1
-    pmask = (1 << pb) - 1
-    n_ps = 1 << pb
-
-    dcost = _pair_dist_cost(model, dd, (ld >= 2) & (dd >= 0))
-    packed = _pack_inputs(data, ld, dd, dcost, model, r0pos, replen, fb)
-    C = packed.shape[1]
-    CK = max(1, chunk)
-    NP = -(-N // CK) * CK
-    if NP > N:
-        packed = jnp.pad(packed, ((0, NP - N), (0, 0), (0, 0)))
-    grid = NP // CK
-
-    ltm_ps = jnp.transpose(model["lt_match"][:, :, :W], (1, 2, 0))
-    ltr_ps = jnp.transpose(model["lt_rep"][:, :, :W], (1, 2, 0))
-    im0_ps = jnp.transpose(model["im0"], (2, 1, 0))
-    im1_ps = jnp.transpose(model["im1"], (2, 1, 0))
-    r0l0_ps = jnp.transpose(model["r0l0"], (2, 1, 0))
-    r0l1_ps = jnp.transpose(model["r0l1"], (2, 1, 0))
-    ir0_t = model["ir0"].T
-    ir1_t = model["ir1"].T
-    sel_t = jnp.transpose(model["rep_sel"], (1, 2, 0))
-    lens_t = lens[None, :].astype(jnp.int32)
-
-    def kernel(inp_ref, ltm_ref, ltr_ref, im0_ref, im1_ref, r0l0_ref,
-               r0l1_ref, ir0_ref, ir1_ref, sel_ref, lens_ref,
-               out_ref, tail_ref,
-               bp_ref, bf_ref, bc_ref, bst_ref, brp_ref):
-        c = pl.program_id(0)
-        s12 = jax.lax.broadcasted_iota(jnp.int32, (12, 1), 0)
-        lvec_c = jax.lax.broadcasted_iota(jnp.int32, (W, 1), 0) + 2
-
-        @pl.when(c == 0)
-        def _init():
-            bp_ref[...] = jnp.concatenate(
-                [jnp.zeros((1, L), jnp.int32),
-                 jnp.full((B - 1, L), INF, jnp.int32)], axis=0)
-            bf_ref[...] = jnp.zeros((B, L), jnp.int32)
-            bc_ref[...] = jnp.full((B, L), -1, jnp.int32)
-            bst_ref[...] = jnp.zeros((B, L), jnp.int32)
-            brp_ref[...] = jnp.zeros((4, B, L), jnp.int32)
-
-        lens_l = lens_ref[0]
-
-        bp = bp_ref[...]
-        bf = bf_ref[...]
-        bc = bc_ref[...]
-        bst = bst_ref[...]
-        brp = brp_ref[...]
-        outs = []
-        for j in range(CK):
-            i = c * CK + j
-            row = inp_ref[j]
-            ld_i = row[0:M]
-            dd_i = row[M:2 * M]
-            lit_i = row[6 * M]
-            mlit_i = row[6 * M + 1]
-            r0p_i = row[6 * M + 2]
-            rl_i = row[6 * M + 3]
-            sr_eq_i = row[6 * M + 4]
-
-            ps = i & pmask
-
-            # --- node i is final in col 0: just read it ---
-            p_i, d_i, c_i = bp[0], bf[0], bc[0]
-            st_i = bst[0]
-            r_i = brp[:, 0]                                  # (4, L)
-
-            outs.append(jnp.stack([i - d_i, c_i]))
-
-            live = i < lens_l
-            ohst = (s12 == st_i[None, :]).astype(jnp.int32)
-            ohps = [ps == q for q in range(n_ps)]
-
-            def by_ps(ref):
-                acc = jnp.zeros(ref.shape[1:], jnp.int32)
-                for q in range(n_ps):
-                    acc = jnp.where(ohps[q], ref[q], acc)
-                return acc
-
-            def at_st(tab):
-                return jnp.sum(tab * ohst, axis=0)
-
-            f_im0 = at_st(by_ps(im0_ref))
-            f_im1 = at_st(by_ps(im1_ref))
-            f_r0l0 = at_st(by_ps(r0l0_ref))
-            f_r0l1 = at_st(by_ps(r0l1_ref))
-            f_ir0 = at_st(ir0_ref[...])
-            f_ir1 = at_st(ir1_ref[...])
-            f_sel = jnp.sum(sel_ref[...] * ohst[None], axis=1)
-
-            # --- literal / shortRep -> col 1 (state/reps carried) ---
-            lcost = jnp.where(st_i >= 7, mlit_i, lit_i)
-            cand_l = p_i + f_im0 + lcost
-            sr_ok = (sr_eq_i > 0) & (r_i[0] == r0p_i)
-            cand_sr = jnp.where(
-                sr_ok, p_i + f_im1 + f_ir1 + f_sel[0] + f_r0l0, INF)
-            use_sr = cand_sr < cand_l
-            cand1 = jnp.minimum(cand_l, cand_sr)
-            imp = live & (cand1 < bp[1])
-            st1 = jnp.where(use_sr, jnp.where(st_i < 7, 9, 11),
-                            _next_lit(st_i))
-            c1_p = jnp.where(imp, cand1, bp[1])
-            c1_f = jnp.where(imp, 1, bf[1])
-            c1_c = jnp.where(imp, jnp.where(use_sr, r_i[0], -1), bc[1])
-            c1_st = jnp.where(imp, st1, bst[1])
-            c1_rp = jnp.where(imp[None, :], r_i, brp[:, 1])   # (4, L)
-
-            # --- match / rep relax over cols 2..fb ---
-            ld_c = jnp.minimum(ld_i, jnp.maximum(lens_l - i, 0)[None, :])
-            pv = (ld_c >= 2) & (dd_i >= 0) & live[None, :]
-            eq = dd_i[:, None, :] == r_i[None, :, :]
-            any_eq = jnp.any(eq, axis=1)
-            rix = jnp.where(eq[:, 0], 0,
-                            jnp.where(eq[:, 1], 1,
-                                      jnp.where(eq[:, 2], 2, 3)))
-            mbase = p_i + f_im1 + f_ir0
-            rep_head = p_i + f_im1 + f_ir1
-            rep_base = [rep_head + f_sel[0] + f_r0l1,
-                        rep_head + f_sel[1],
-                        rep_head + f_sel[2],
-                        rep_head + f_sel[3]]
-            rb_t = jnp.stack(rep_base)
-            rb = jnp.where(rix == 0, rb_t[0],
-                           jnp.where(rix == 1, rb_t[1],
-                                     jnp.where(rix == 2, rb_t[2], rb_t[3])))
-            ltm = by_ps(ltm_ref)
-            ltr = by_ps(ltr_ref)
-
-            def dc_q(q):
-                return jnp.stack([row[2 * M + 4 * m + q]
-                                  for m in range(M)])
-
-            dc_sat = dc_q(3)
-            dc_l = (jnp.concatenate(
-                [jnp.stack([dc_q(0), dc_q(1), dc_q(2)]),
-                 jnp.broadcast_to(dc_sat[None], (W - 3, M, L))],
-                axis=0) if W > 3
-                else jnp.stack([dc_q(q) for q in range(W)]))
-            cost = jnp.where(any_eq[None, :, :],
-                             rb[None, :, :] + ltr[:, None, :],
-                             mbase[None, None, :] + dc_l
-                             + ltm[:, None, :])
-            lm = lvec_c[:, None, :] <= ld_c[None, :, :]
-            if full_len_only:
-                lm = lm & (lvec_c[:, None, :] == ld_c[None, :, :])
-            cost = jnp.where(lm & pv[None, :, :], cost, INF)
-            kind_t = jnp.where(any_eq, rix, RK_MATCH)
-
-            best = jnp.full((W, L), INF, jnp.int32)
-            bdist = jnp.zeros((W, L), jnp.int32)
-            bkind = jnp.full((W, L), RK_MATCH, jnp.int32)
-            for m in range(M):
-                better = cost[:, m] < best
-                best = jnp.where(better, cost[:, m], best)
-                bdist = jnp.where(better, dd_i[m][None, :], bdist)
-                bkind = jnp.where(better, kind_t[m][None, :], bkind)
-            if r0pos is not None:
-                rl_c = jnp.minimum(rl_i, jnp.maximum(lens_l - i, 0))
-                rep0_ok = live & (r_i[0] == r0p_i) & (rl_c >= 2)
-                cost0 = jnp.where(
-                    rep0_ok[None, :] & (lvec_c <= rl_c[None, :]),
-                    rep_base[0][None, :] + ltr, INF)
-                better = cost0 < best
-                best = jnp.where(better, cost0, best)
-                bdist = jnp.where(better, r0p_i[None, :], bdist)
-                bkind = jnp.where(better, 0, bkind)
-
-            # resulting node state/reps per winning edge — the moved
-            # finalize: everything depends only on (st_i, kind, dist)
-            ismk = bkind == RK_MATCH                          # (W, L)
-            kkw = jnp.minimum(jnp.maximum(bkind, 0), 3)
-            w_st = jnp.where(ismk, _next_match(st_i)[None, :],
-                             _next_longrep(st_i)[None, :])
-            w_n0 = bdist
-            w_n1 = jnp.where(ismk | (kkw >= 1), r_i[0][None, :],
-                             r_i[1][None, :])
-            w_n2 = jnp.where(ismk | (kkw >= 2), r_i[1][None, :],
-                             r_i[2][None, :])
-            w_n3 = jnp.where(ismk | (kkw >= 3), r_i[2][None, :],
-                             r_i[3][None, :])
-
-            win = bp[2:2 + W]
-            impw = best < win
-            w_p = jnp.where(impw, best, win)
-            w_f = jnp.where(impw, jnp.broadcast_to(lvec_c, (W, L)),
-                            bf[2:2 + W])
-            w_c = jnp.where(impw, jnp.maximum(bdist, 0), bc[2:2 + W])
-            w_s = jnp.where(impw, w_st, bst[2:2 + W])
-            w_r = jnp.stack([
-                jnp.where(impw, w_n0, brp[0, 2:2 + W]),
-                jnp.where(impw, w_n1, brp[1, 2:2 + W]),
-                jnp.where(impw, w_n2, brp[2, 2:2 + W]),
-                jnp.where(impw, w_n3, brp[3, 2:2 + W]),
-            ])                                               # (4, W, L)
-
-            # --- advance: fused relax + shift ---
-            bp = jnp.concatenate(
-                [c1_p[None], w_p, jnp.full((1, L), INF, jnp.int32)], axis=0)
-            bf = jnp.concatenate(
-                [c1_f[None], w_f, jnp.zeros((1, L), jnp.int32)], axis=0)
-            bc = jnp.concatenate(
-                [c1_c[None], w_c, jnp.full((1, L), -1, jnp.int32)], axis=0)
-            bst = jnp.concatenate(
-                [c1_st[None], w_s, jnp.zeros((1, L), jnp.int32)], axis=0)
-            brp = jnp.concatenate(
-                [c1_rp[:, None, :], w_r, jnp.zeros((4, 1, L), jnp.int32)],
-                axis=1)
-
-        out_ref[...] = jnp.stack(outs)
-        bp_ref[...] = bp
-        bf_ref[...] = bf
-        bc_ref[...] = bc
-        bst_ref[...] = bst
-        brp_ref[...] = brp
-
-        @pl.when(c == grid - 1)
-        def _tail():
-            tail_ref[...] = jnp.stack([NP - bf_ref[0], bc_ref[0]])
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    out, tail = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((CK, C, L), lambda c: (c, 0, 0)),
-            pl.BlockSpec((n_ps, W, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, W, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((n_ps, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((12, L), lambda c: (0, 0)),
-            pl.BlockSpec((12, L), lambda c: (0, 0)),
-            pl.BlockSpec((4, 12, L), lambda c: (0, 0, 0)),
-            pl.BlockSpec((1, L), lambda c: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((CK, 2, L), lambda c: (c, 0, 0)),
-            pl.BlockSpec((2, L), lambda c: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((NP, 2, L), jnp.int32),
-            jax.ShapeDtypeStruct((2, L), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, L), jnp.int32),       # bp
-            pltpu.VMEM((B, L), jnp.int32),       # bf
-            pltpu.VMEM((B, L), jnp.int32),       # bc
-            pltpu.VMEM((B, L), jnp.int32),       # bstate
-            pltpu.VMEM((4, B, L), jnp.int32),    # breps
-        ],
-        interpret=interpret,
-    )(packed, ltm_ps, ltr_ps, im0_ps, im1_ps, r0l0_ps, r0l1_ps,
-      ir0_t, ir1_t, sel_t, lens_t)
-
-    from_abs = jnp.moveaxis(out[:, 0, :], 0, 1)
-    choice = jnp.moveaxis(out[:, 1, :], 0, 1)
-    if NP == N:
-        from_abs = jnp.concatenate([from_abs, tail[0][:, None]], axis=1)
-        choice = jnp.concatenate([choice, tail[1][:, None]], axis=1)
-    else:
-        from_abs = from_abs[:, :N + 1]
-        choice = choice[:, :N + 1]
-    return from_abs, choice
+        name="lzma_dp_scan",
+    )(packed, ltm, ltr, flags, st_tabs, lens.astype(i32))
+    return jnp.moveaxis(out[:, 0], 0, 1), jnp.moveaxis(out[:, 1], 0, 1)
 
 
 # ------------------------------------------------------------- pass D
@@ -1592,46 +1232,22 @@ def _seed_from_lists(cl, cd, counts, n, data=None, ext_from: int = 0,
     return _compact(bl, bd, on_path, n, lazy)
 
 
-@partial(jax.jit, static_argnames=("lc", "lp", "pb", "fb", "m_dp",
-                                   "full_len_only", "tiers_key", "n_iter",
-                                   "band", "seed", "m_cap_search",
-                                   "m_cap_order"))
-def tokenize_optimal(data, lens, dict_size, *, lc, lp, pb, fb,
-                     m_dp=DEFAULT_M_DP, full_len_only=False,
-                     tiers_key=(("k4", 4), ("k8", 2)), n_iter=1,
-                     band=None, seed="lists", m_cap_search=DP_M_CAP,
-                     m_cap_order=DP_M_CAP_ORDER):
-    """Full device pipeline: candidate lists -> empirical prices -> DP ->
-    tokens.  data (L, N) u8, lens (L,).  Returns (t_pos, t_len, t_dist,
-    t_valid, ntok) — same contract as device_matcher.tokenize, ready for
-    the host TokenEncoder or the device lowering.
-
-    `n_iter` > 1 re-derives the bit statistics from the DP's OWN token
-    stream and reparses — the parse/price fixed-point iteration.  The
-    lazy seed parse rarely lands rep-coded matches, so its is_rep /
-    rep-length statistics underprice nothing; one extra round lets the
-    model see the optimal parse's own symbol mix (the analogue of the
-    reference's price adaptation tracking its own output)."""
-    from .device_encoder import classify_tokens, lower_tokens
-    from .device_matcher import tokenize
-
-    if band is None:
-        # the Mosaic kernel on TPU; the fused XLA band form elsewhere
-        band = "pallas" if jax.default_backend() == "tpu" else True
-    L, N = data.shape
-    tiers = dict(tiers_key)
-    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
-    max_bits = 10 * N + 128
+@partial(jax.jit, static_argnames=("fb", "m_dp", "tiers_key", "seed",
+                                   "m_cap_search", "m_cap_order"))
+def _candidates(data, lens, dict_size, *, fb, m_dp, tiers_key, seed,
+                m_cap_search, m_cap_order):
+    """Candidate pairs for the DP edges, the suffix rank/table the rep0
+    length trace reuses, and the seed token stream."""
+    from .device_matcher import _rmq_search, tokenize
 
     # candidate lists for the DP edges (shared across iterations); the
     # RMQ engine gives identical lists at any fb without the
     # gather-bound compare loop (ops/hybrid._list_engine rationale).
     # m_cap right-sizes the per-position unique-candidate set to the
-    # DP's consumption (measured ratio/speed knee, MEASUREMENTS.md r5);
-    # the suffix rank/table come back for reuse by the rep0-length
-    # trace below (2 gathers/position instead of an fb-round loop)
-    from .device_matcher import _rmq_search, rep_match_lens_rmq
-
+    # DP's consumption (DESIGN-NOTES.md "Ratio knees"); the suffix
+    # rank/table come back for reuse by the rep0-length trace (2
+    # gathers/position instead of an fb-round loop)
+    tiers = dict(tiers_key)
     cl, cd, counts, s_rank, s_T = jax.vmap(
         lambda d, n: _rmq_search(d, n, dict_size, fb, m_cap=m_cap_search,
                                  m_cap_order=m_cap_order, **tiers)
@@ -1640,17 +1256,17 @@ def tokenize_optimal(data, lens, dict_size, *, lc, lp, pb, fb,
 
     # pass A seed: lazy parse for the empirical statistics.  seed="lists"
     # reuses the candidate lists above (no second search); seed="lazy" is
-    # the round-4 independent tokenize pass (kept for A/B)
+    # an independent tokenize pass
     if seed not in ("lists", "lists2", "lists_ext", "lazy"):
         raise ValueError(f"unknown optimal-parse seed mode {seed!r} "
                          "(expected lists | lists2 | lists_ext | lazy)")
     if seed.startswith("lists"):
         from .device_matcher import MATCH_MAX
 
-        # measured knee (MEASUREMENTS.md round-4 seed A/B, frozen corpus):
         # min_len=4 beats both the lazy tokenize seed and the raw-lists
-        # seed; extending past the list depth measured slightly WORSE, so
-        # the default does neither search nor extension.
+        # seed; extending past the list depth measured slightly worse,
+        # so the default does neither search nor extension
+        # (DESIGN-NOTES.md "Ratio knees")
         depth = fb  # both searchers cap list lengths at fb
         ext_to = min(MATCH_MAX, 273) if seed == "lists_ext" else 0
         mn = 2 if seed == "lists2" else 4
@@ -1663,36 +1279,79 @@ def tokenize_optimal(data, lens, dict_size, *, lc, lp, pb, fb,
         tp, tl, td, tv, _ = jax.vmap(
             lambda d, n: tokenize(d, n, dict_size, fb, 4)
         )(data, lens)
+    return ld, dd, s_rank, s_T, (tp, tl, td, tv)
 
+
+@partial(jax.jit, static_argnames=("lc", "lp", "pb", "fb"))
+def _prices(data, lens, tokens, s_rank, s_T, *, lc, lp, pb, fb):
+    """Price model, rep0 trace and rep0 match lengths from the block's
+    own token stream (pass B)."""
+    from .device_encoder import classify_tokens, lower_tokens
+    from .device_matcher import rep_match_lens_rmq
+
+    tp, tl, td, tv = tokens
+    N = data.shape[1]
+    layout = ProbLayout(lc, lp, pb, pos_bits=pb)
+    meta = classify_tokens(data, tp, tl, td, tv)
+    ctx, bits, totals = lower_tokens(data, meta, tp, tl, td, tv,
+                                     lc, lp, pb, 10 * N + 128)
+    probs = empirical_probs(ctx, bits, totals, layout.size)
+    r0pos = rep0_trace(tp, td, tv, N)
+    replen = jax.vmap(
+        lambda r, t, rp, n: rep_match_lens_rmq(r, t, rp, n, fb)
+    )(s_rank, s_T, r0pos, lens)
+    model = build_price_model(data, probs, lc, lp, pb, fb, r0pos=r0pos)
+    return model, r0pos, replen
+
+
+def tokenize_optimal(data, lens, dict_size, *, lc, lp, pb, fb,
+                     m_dp=DEFAULT_M_DP, full_len_only=False,
+                     tiers_key=(("k4", 4), ("k8", 2)), n_iter=1,
+                     dp=None, seed="lists", m_cap_search=DP_M_CAP,
+                     m_cap_order=DP_M_CAP_ORDER):
+    """Full device pipeline: candidate lists -> empirical prices -> DP ->
+    tokens.  data (L, N) u8, lens (L,).  Returns (t_pos, t_len, t_dist,
+    t_valid, ntok) — same contract as device_matcher.tokenize, ready for
+    the host TokenEncoder or the device lowering.
+
+    `n_iter` > 1 re-derives the bit statistics from the DP's OWN token
+    stream and reparses — the parse/price fixed-point iteration.  The
+    lazy seed parse rarely lands rep-coded matches, so its is_rep /
+    rep-length statistics underprice nothing; one extra round lets the
+    model see the optimal parse's own symbol mix (the analogue of the
+    reference's price adaptation tracking its own output).
+
+    `dp` is the scan (dp_parse, dp_parse_band or dp_parse_triton, all
+    token-identical); None picks the backend's (ops/kernels.py)."""
+    if dp is None:
+        from . import kernels
+
+        dp = kernels.for_platform().dp_scan
+    N = data.shape[1]
+    ld, dd, s_rank, s_T, tokens = _candidates(
+        data, lens, dict_size, fb=fb, m_dp=m_dp, tiers_key=tiers_key,
+        seed=seed, m_cap_search=m_cap_search, m_cap_order=m_cap_order)
     for _ in range(max(1, n_iter)):
-        meta = classify_tokens(data, tp, tl, td, tv)
-        ctx, bits, totals = lower_tokens(data, meta, tp, tl, td, tv,
-                                         lc, lp, pb, max_bits)
-        probs = empirical_probs(ctx, bits, totals, layout.size)
-        r0pos = rep0_trace(tp, td, tv, N)
-        replen = jax.vmap(
-            lambda r, t, rp, n: rep_match_lens_rmq(r, t, rp, n, fb)
-        )(s_rank, s_T, r0pos, lens)
-        model = build_price_model(data, probs, lc, lp, pb, fb, r0pos=r0pos)
-        if band in ("pallas", "pallas_interpret", "pallas2",
-                    "pallas2_interpret"):
-            _dp = dp_parse_pallas2 if band.startswith("pallas2") else \
-                dp_parse_pallas
-            from_, choice = _dp(
-                data, lens, ld, dd, model, fb, pb, full_len_only,
-                r0pos=r0pos, replen=replen,
-                interpret=band.endswith("interpret"))
-        elif band:
-            from_, choice = dp_parse_band(data, lens, ld, dd, model, fb, pb,
-                                          full_len_only, r0pos=r0pos,
-                                          replen=replen)
-        else:
-            price, from_, choice, rkind = dp_parse(data, lens, ld, dd, model,
-                                                   fb, pb, full_len_only,
-                                                   r0pos=r0pos, replen=replen)
+        model, r0pos, replen = _prices(data, lens, tokens, s_rank, s_T,
+                                       lc=lc, lp=lp, pb=pb, fb=fb)
+        from_, choice = dp(data, lens, ld, dd, model, fb, pb, full_len_only,
+                           r0pos=r0pos, replen=replen)
         tp, tl, td, tv, ntok = extract_tokens(from_, choice, lens)
-        # extract_tokens pads to NP = N + fb + 1 columns; the lowering
-        # budget is per-position, so trim back to N token slots (a block
-        # never holds more than N tokens)
-        tp, tl, td, tv = tp[:, :N], tl[:, :N], td[:, :N], tv[:, :N]
-    return tp, tl, td, tv, ntok
+        # extract_tokens pads to N + fb + 1 columns; the lowering budget
+        # is per-position, so trim back to N token slots (a block never
+        # holds more than N tokens)
+        tokens = (tp[:, :N], tl[:, :N], td[:, :N], tv[:, :N])
+    return (*tokens, ntok)
+
+
+def dp_scan_inputs(data, lens, dict_size, *, lc, lp, pb, fb):
+    """Inputs of the first DP scan under the production settings of
+    parse="optimal" (ld, dd, model, r0pos, replen) — the same compiled
+    stages tokenize_optimal dispatches, for comparing scan
+    implementations on identical inputs."""
+    ld, dd, s_rank, s_T, tokens = _candidates(
+        data, lens, dict_size, fb=fb, m_dp=DEFAULT_M_DP, tiers_key=DP_TIERS,
+        seed="lists", m_cap_search=DP_M_CAP, m_cap_order=DP_M_CAP_ORDER)
+    model, r0pos, replen = _prices(data, lens, tokens, s_rank, s_T,
+                                   lc=lc, lp=lp, pb=pb, fb=fb)
+    return ld, dd, model, r0pos, replen

@@ -1,16 +1,16 @@
-"""Hybrid TPU encode pipeline: device match search + native serialization.
+"""Hybrid encode pipeline: device match search + native serialization.
 
-The architecturally-sound split for LZMA on TPU hardware:
+The split of LZMA between an accelerator and the host:
 
   * the O(n log n) expensive part — match finding + greedy parse — runs on
-    the TPU as sort/compare/scan vector work (ops/device_matcher.py,
-    measured multi-GB/s per chip);
+    the device as sort/compare/scan vector work (ops/device_matcher.py);
   * the O(compressed-bits) inherently bit-serial part — LZMA state
     machine + adaptive range coding — runs on the host native runtime
     (TokenEncoder in runtime/src/lzma_core.cpp) across a thread pool.
 
 The per-lane data leaving the device is just the compact token stream
-(pos, len, dist per parse step), so the PCIe/ICI traffic is ~data-sized.
+(pos, len, dist per parse step), so the host<->device traffic is
+~data-sized.
 Output is bit-identical to the all-device encoder for the same tokens and
 decodes everywhere (scalar/native/device/liblzma).
 """
@@ -46,7 +46,7 @@ def encode_blocks_hybrid(
     preset_len: int = 0,
     dictionary: bytes = b"",
 ) -> bytes:
-    """TPU-search + host-serialize block-parallel encode to LZTB.
+    """Device-search + host-serialize block-parallel encode to LZTB.
 
     `preset_len > 0` writes LZTB v2: block 0 plain, every other block's
     window primed with block 0's prefix — the device lanes search
@@ -166,8 +166,7 @@ def _list_engine(fb: int):
     """find_match_lists engine dispatch: the suffix-rank RMQ form
     produces IDENTICAL lists at ANY fb (asserted by tests; round 5
     extends the exact sort depth past 32 via prefix doubling) at a
-    fraction of the compare loop's gather volume (MEASUREMENTS.md
-    round 4 hazard v2).  The compare-loop engine remains available as
+    fraction of the compare loop's gather volume.  The compare-loop engine remains available as
     the independent oracle the identity tests check against."""
     from .device_matcher import find_match_lists_rmq
 
@@ -208,9 +207,9 @@ def _match_lists_grouped(arr, lane_lens, dict_size, fb, tiers):
     """Run the candidate search in memory-bounded lane groups, with the
     per-position lists flattened ON DEVICE.
 
-    One oversized dispatch (deep tiers x many 256 KB lanes) can crash
-    the TPU worker outright (observed at 17 x 2^18 on v5e), so the
-    batch is chunked to ~2 MB of lane data per dispatch; the last group
+    The batch is chunked to ~2 MB of lane data per dispatch (a fixed
+    bound that keeps one dispatch's search intermediates small; not yet
+    sized against the card's memory); the last group
     is padded with idle lanes to keep one stable jit shape.  Returns
     numpy (fl (n, cap), fd (n, cap), counts (n, width)) — ~3 pair words
     per position on the wire instead of M (device-side flatten,
@@ -267,7 +266,7 @@ def _flatten_lists(cl, cd, counts, n_pos_per_lane):
     """Per-lane (max_n, M) candidate arrays -> flat pair arrays + offset
     tables for native.encode_candidate_blocks.
 
-    Fully vectorized (VERDICT r2 weak #4): one boolean gather for the
+    Fully vectorized: one boolean gather for the
     pairs and one global cumsum for the offset tables — no per-lane
     Python loop (the old loop cost ~0.5 s per 2 MB, slower than the
     native parse it feeds)."""
@@ -296,9 +295,8 @@ def _flatten_lists(cl, cd, counts, n_pos_per_lane):
 
 
 #: Candidate-tier depths for the hybrid-optimal pipeline: the measured
-#: ratio/speed knee on the frozen corpus (tools/cand_sweep.py,
-#: MEASUREMENTS.md round-3 entry — +0.38% vs native bt4-opt at 2.24x
-#: host speed; deeper tiers reach +0.31% at ~2x the device search cost).
+#: ratio knee on the frozen corpus (tools/cand_sweep.py; +0.38% vs
+#: native bt4-opt, deeper tiers +0.31% — DESIGN-NOTES.md "Ratio knees").
 DEFAULT_TIERS = dict(k4=12, k6=4, k8=6, k16=3, k32=2)
 
 
@@ -312,8 +310,8 @@ def encode_blocks_hybrid_optimal(
     preset_len: int = 0,
     dictionary: bytes = b"",
 ) -> bytes:
-    """TPU multi-tier candidate search + host OPTIMAL parse (VERDICT r1
-    item 3): the device builds ascending (len, dist) lists per position
+    """Device multi-tier candidate search + host OPTIMAL parse: the
+    device builds ascending (len, dist) lists per position
     (device_matcher.find_match_lists) and the native optimal DP runs over
     them with zero finder work — skip is pure position advance.  Ratio
     approaches native bt4-opt (candidate quality sets the gap); the

@@ -3,7 +3,7 @@
 One LZMA stream is inherently bit-serial (the reference's decode loop is a
 strict chain, Decoder.java:219-296), so throughput scaling comes from
 chunking input into independent streams ("blocks"), encoding/decoding them
-data-parallel — across host threads (runtime/), TPU lanes (ops/) and mesh
+data-parallel — across host threads (runtime/), device lanes (ops/) and mesh
 devices (parallel/mesh.py) — and concatenating results in order.  This is
 the LZMA analogue of data parallelism called for by SURVEY.md §5.7/§5.8.
 
@@ -260,7 +260,7 @@ def encode_blocks(
     """Chunk + encode data-parallel + ordered concat.
 
     `encode_fn(block_bytes) -> stream_bytes` lets callers swap the backend
-    (native C++ / TPU lanes) while reusing the framing.  `preset_len`
+    (native C++ / device lanes) while reusing the framing.  `preset_len`
     shares the first bytes of block 0 as a preset dictionary for every
     other block (LZTB v2); `dictionary` stores a trained dictionary
     (utils/dicttrain.py) as its own compressed stream and primes EVERY

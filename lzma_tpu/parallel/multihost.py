@@ -7,7 +7,7 @@ within a slice and DCN across slices.  Input distribution and final
 ordered concat stay on host 0 (process_index 0) — the natural layout for
 a file codec.
 
-Validated three ways on the single-host rig: the 8-virtual-device mesh
+Validated three ways on a single host: the 8-virtual-device mesh
 tests, the driver's dryrun_multichip, and a REAL two-process
 jax.distributed run (tests/test_multihost.py::test_two_process_pod_roundtrip
 — two clients, 4 virtual CPU devices each, cross-process all_gathers over
@@ -26,8 +26,10 @@ from .mesh import decode_blocks_mesh, encode_blocks_mesh, make_mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Join the distributed job (idempotent).  With no args, uses the TPU
-    runtime's automatic configuration (GKE/TPU-VM metadata).
+    """Join the distributed job (idempotent).  With no args, JAX looks
+    for a cluster it can detect on its own (a managed cluster's
+    environment); on plain GPU hosts pass coordinator_address
+    (host:port), num_processes and process_id explicitly.
 
     Must run before anything initializes the XLA backend — so the check
     uses jax.distributed.is_initialized(), NOT jax.process_count() (which

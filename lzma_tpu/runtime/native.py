@@ -172,7 +172,7 @@ def encode_token_blocks(
     t_pos, t_len, t_dist, tok_offsets, tok_counts, num_threads: int = 0,
     preset: bytes = b"", preset_first: bool = False,
 ):
-    """Serialize precomputed per-block token streams (hybrid TPU pipeline).
+    """Serialize precomputed per-block token streams (hybrid pipeline).
 
     data_padded: contiguous uint8 buffer, block i at [i*block_size:...].
     t_*: flat int32 arrays with BLOCK-RELATIVE positions;
@@ -218,8 +218,7 @@ def encode_candidate_blocks(
 ):
     """Hybrid-OPTIMAL encode: the device's per-position ascending
     (len, dist) candidate lists drive the native optimal parser
-    (VERDICT r1 item 3; contract: BinTree.fillMatches semantics,
-    BinTree.java:152-273).
+    (contract: BinTree.fillMatches semantics, BinTree.java:152-273).
 
     data_padded: contiguous uint8, block i at [i*block_size:...].
     cand_len/cand_dist: flat int32 pair arrays; cand_off: int64, for

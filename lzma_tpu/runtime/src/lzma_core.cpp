@@ -1,6 +1,6 @@
 // lzma_tpu native runtime: high-throughput host-side LZMA block codec.
 //
-// The TPU framework's host runtime component (SURVEY.md §2 calls for native
+// The framework's host runtime component (SURVEY.md §2 calls for native
 // stand-ins where performance matters): a from-scratch C++17 implementation
 // of the same codec semantics as the Python oracle (lzma_tpu/codec/*.py),
 // sharing the flat probability-arena layout, plus a std::thread block pool
@@ -299,7 +299,7 @@ class RangeDecT {
   inline int decode_bit(uint16_t* probs, int idx) {
     // Branchless mirror of RangeEnc::encode_bit: the decoded bit IS the
     // data, so `code < bound` is inherently unpredictable.  (The xz-style
-    // branchy form measured 18% slower here — MEASUREMENTS.md.)
+    // branchy form measured 18% slower here.)
     uint32_t prob = probs[idx];
     uint32_t bound = (range >> kNumBitModelTotalBits) * prob;
     uint32_t mask = (uint32_t)0 - (uint32_t)(code >= bound);
@@ -394,7 +394,7 @@ class MatchFinder {
 
   MatchFinder(const uint8_t* b, int32_t len, int32_t dict, int mml, Kind k)
       : buf(b), n(len), match_max_len(mml), kind(k) {
-    // FAST4's shallow chain is the measured speed/ratio knee (MEASUREMENTS.md).
+    // FAST4's shallow chain is the measured speed/ratio knee.
     cut_value = k == FAST4   ? 4
                 : k == HC4   ? 8 + (mml >> 2)
                              : 16 + (mml >> 1);
@@ -1981,7 +1981,7 @@ class Encoder {
 
 // ------------------------------------------------------- token serializer
 // Serializes a precomputed parse (token stream) into an LZMA bitstream.
-// This is the host half of the hybrid TPU pipeline: the device's
+// This is the host half of the hybrid pipeline: the device's
 // sort-based matcher produces (pos, len, dist) tokens at GB/s
 // (lzma_tpu/ops/device_matcher.py) and this class performs the inherently
 // bit-serial tail — LZMA state machine, rep-distance MTF, literal
@@ -2858,7 +2858,7 @@ int lzt_decode_blocks(const uint8_t* payload, int64_t payload_len, int lc,
   return error.load();
 }
 
-// Serialize precomputed token streams (hybrid TPU pipeline).  Blocks laid
+// Serialize precomputed token streams (hybrid pipeline).  Blocks laid
 // out back-to-back: block i's tokens are tok_counts[i] triplets starting
 // at tok_offsets[i] in the flat t_* arrays; its data at data+i*block_size.
 // Writes concatenated LZMA streams + per-block sizes.  Threaded.

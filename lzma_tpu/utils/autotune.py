@@ -3,8 +3,8 @@
 The reference exposes lc/lp/pb as expert switches and leaves choosing
 them to the user (Encoder.java:1169-1180); the right values are
 data-dependent (text wants literal context bits, word-aligned binary
-wants literal POSITION bits — the lc/lp/pb sweep in MEASUREMENTS.md
-spans a 1%+ container-size spread on real corpora).  This module picks
+wants literal POSITION bits — an lc/lp/pb sweep spans a 1%+
+container-size spread on real corpora).  This module picks
 them the same way `utils/dicttrain.select_dictionary` sizes trained
 dictionaries: encode a spread sample with each candidate and keep the
 measured-cheapest, with a margin rule so noise never flips away from
@@ -19,7 +19,7 @@ from ..format.properties import LzmaParams
 
 #: (lc, lp, pb) candidates: the reference default (text), word-aligned
 #: binary profiles, and low-state variants that win on simple/periodic
-#: data (sweep table in MEASUREMENTS.md).  The baseline's own triple is
+#: data.  The baseline's own triple is
 #: always scored first.
 DEFAULT_CANDIDATES = ((3, 0, 2), (0, 2, 0), (2, 0, 0), (0, 0, 0), (1, 1, 1))
 

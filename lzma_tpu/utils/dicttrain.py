@@ -61,7 +61,7 @@ def train_dictionary(
     repeats are what a dictionary is for), `table_bits` the frequency
     table size.  Deterministic for fixed inputs.
 
-    Defaults from the measured knee (MEASUREMENTS.md): k=32/d=6 beats
+    Defaults from the measured knee (DESIGN-NOTES.md): k=32/d=6 beats
     larger segments on every tested corpus — many short high-frequency
     shards cover more distinct match seeds than few long segments, and
     LZMA's rep-distance machinery stitches adjacent shard hits cheaply.
@@ -95,7 +95,7 @@ def train_dictionary(
     chosen: list[tuple[int, bytes]] = []
     # a segment is only worth storing if its d-mers still repeat: below
     # ~2 remaining occurrences per d-mer the stored-dictionary stream
-    # costs more than the matches it enables (measured, MEASUREMENTS.md)
+    # costs more than the matches it enables (measured)
     min_score = 2 * w
     for s in range(num_segments):
         lo = s * epoch
@@ -141,7 +141,7 @@ def select_dictionary(
     A stored dictionary (LZTB v3) is paid for in the container, so the
     right size depends on the data: large dictionaries are
     cost-dominated, and on low-redundancy data NO dictionary is best
-    (MEASUREMENTS.md).  This trains once at `max_size`, then — because
+    (DESIGN-NOTES.md).  This trains once at `max_size`, then — because
     the trainer lays segments worst→best, making every suffix itself a
     well-ordered dictionary — scores the suffix lengths
     {max, max/2, max/4, max/8, 0} by actual compressed cost on a spread

@@ -1,6 +1,6 @@
 """Device-path profiling: jax.profiler trace capture + phase timers.
 
-The TPU analogue of the reference's (absent) profiler story: the scalar
+The device-side analogue of the reference's (absent) profiler story: the scalar
 path traces per symbol (utils/trace.py); the device path records per-phase
 wall time and can capture full XLA traces for TensorBoard/Perfetto.
 """

@@ -10,7 +10,7 @@ Capability parity with the reference's observability hooks:
   (Encoder.java:929-933);
 - the test LogFormatter (LogFormatter.java:9-37) -> `trace_formatter()`.
 
-The TPU path's analogue is coarser by design (device loops can't log per
+The device path's analogue is coarser by design (device loops can't log per
 symbol): per-block phase timings via `jax.profiler` traces — see
 utils/profiling.py.
 """
@@ -49,7 +49,7 @@ class CodecTrace:
 
     def tokens(self, lane: int, t_pos, t_len, t_dist, kinds, rep_idx,
                ntok: int) -> None:
-        """Device-path decision dump (VERDICT r3 item 2/7): the token
+        """Device-path decision dump: the token
         stream IS the decision stream, so each (pos, len, dist) token +
         its classify metadata prints in exactly the per-symbol format of
         `symbol()` — device and scalar traces read identically when the

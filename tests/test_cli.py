@@ -169,3 +169,39 @@ def test_cli_bench_hybrid_backend(monkeypatch):
     data = (b"cli hybrid bench payload " * 100)[:2000]
     comp = captured["enc"](data)
     assert captured["dec"](comp, len(data)) == data
+
+
+def test_backend_device_switch():
+    c = CommandLine()
+    assert c.parse(["e", "-backenddevice", "a", "b"])
+    assert c.backend == "device"
+    assert not CommandLine().parse(["e", "-backendtpu", "a", "b"])
+
+
+@pytest.fixture
+def keep_cache_dir():
+    import jax
+
+    old = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_cli_device_backend_roundtrip(tmp_path, keep_cache_dir):
+    """e/d through the device backend in-process: a .lzma single stream
+    and an LZTB container, both read back by liblzma or the device."""
+    from lzma_tpu.cli import main
+
+    data = (b"device backend cli " * 300)[:4000]
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    alone = tmp_path / "out.lzma"
+    assert main(["e", "-backenddevice", "-q", "-d12", "-fb32", str(src),
+                 str(alone)]) == 0
+    assert lzma.decompress(alone.read_bytes(), format=lzma.FORMAT_ALONE) == data
+    lztb = tmp_path / "out.lztb"
+    back = tmp_path / "back.bin"
+    assert main(["e", "-backenddevice", "-q", "-d12", "-fb32", "-bs1024",
+                 str(src), str(lztb)]) == 0
+    assert main(["d", "-backenddevice", "-q", str(lztb), str(back)]) == 0
+    assert back.read_bytes() == data

@@ -164,7 +164,7 @@ def test_device_eos_cap_overrun_raises_cap_exceeded():
 
 
 def test_device_eos_grow_on_overflow():
-    """decode_alone's doubling retry (VERDICT r3 item 6): a stream whose
+    """decode_alone's doubling retry: a stream whose
     expansion far exceeds the first cap decodes on the device FSM after
     cap growth — no native fallback (asserted by making it unavailable)."""
     import lzma as _lzma
@@ -182,7 +182,7 @@ def test_device_eos_multi_doubling_growth():
     tiny compressed input starts at the 64 KB floor cap and must grow
     three 4x rounds before the marker lands.  (A >= 16 MB on-FSM decode
     is wall-clock-infeasible by the FSM's own cost model — per-iteration
-    masked ops scale with the output bucket, MEASUREMENTS.md round 4 —
+    masked ops scale with the output bucket —
     so beyond LZMA_TPU_DEVICE_EOS_CEILING decode_alone hands unknown-size
     streams to the native streaming decoder at 80+ MB/s.)"""
     import lzma as _lzma

@@ -118,44 +118,50 @@ def test_device_compression_is_real():
     assert len(s) < len(d) // 8  # highly repetitive data must compress hard
 
 
-def test_device_encode_pallas_serializer_path():
-    """encode_batch(use_pallas=True) must equal the XLA path bit-for-bit."""
+def test_device_encode_pallas_serializer_path(triton_interpret):
+    """encode_batch through the Triton range coder (interpret mode) must
+    equal the XLA coder bit-for-bit on the same tokens."""
+    import jax.numpy as jnp
+
+    import lzma_tpu.ops.device_encoder as de
+    from lzma_tpu.core.layout import ProbLayout
+
     p = LzmaParams(dict_size=1 << 12, fast_bytes=32)
     datas = [_corpus(i, 1500) for i in range(3)]
-    a = encode_batch(datas, p)
-    b = encode_batch(datas, p, use_pallas=True)
-    assert a == b
+    got = encode_batch(datas, p)
+    arr = np.zeros((3, 2048), np.uint8)
+    for i, d in enumerate(datas):
+        arr[i, :len(d)] = np.frombuffer(d, np.uint8)
+    ctx, bits, totals, mo = de.lower_lanes(
+        jnp.asarray(arr), jnp.asarray(np.full(3, 1500, np.int32)),
+        jnp.int32(2048), lc=3, lp=0, pb=2, fb=32)
+    out, lens = de.serialize_xla(ctx, bits, totals,
+                                 ProbLayout(3, 0, 2, pos_bits=2).size, mo)
+    out, lens = np.asarray(out), np.asarray(lens)
+    assert got == [out[i, :lens[i]].tobytes() for i in range(3)]
 
 
-def test_device_encode_pallas_fallback_reuses_tokens(monkeypatch):
-    """When the Pallas serializer fails (Mosaic/VMEM envelope), the
-    fallback must re-serialize the tokens already in hand — phases A-C
-    (tokenize/classify/lower, the dominant cost) run exactly ONCE — and
-    still produce the XLA path's exact bytes."""
-    import lzma_tpu.ops.device_encoder as de
-    import lzma_tpu.ops.pallas_serializer as ps
+def test_device_encode_overrun_raises(monkeypatch):
+    """A coded stream longer than its output row is an error, never a
+    silently truncated stream."""
+    from lzma_tpu.ops import kernels
 
     p = LzmaParams(dict_size=1 << 12, fast_bytes=32)
     datas = [_corpus(i + 7, 1200) for i in range(2)]
-    expected = encode_batch(datas, p)
+    real = kernels.for_platform()
 
-    lower_calls = []
-    real_lower = de._lower_lanes_jit
-    monkeypatch.setattr(
-        de, "_lower_lanes_jit",
-        lambda *a, **k: lower_calls.append(1) or real_lower(*a, **k))
+    def overrun(ctx, bits, totals, arena_size, max_out):
+        out, lens = real.serialize(ctx, bits, totals, arena_size, max_out)
+        return out, lens.at[1].set(max_out + 1)
 
-    def boom(*a, **k):
-        raise RuntimeError("simulated Mosaic lowering failure")
-
-    monkeypatch.setattr(ps, "serialize_pallas", boom)
-    got = encode_batch(datas, p, use_pallas=True)
-    assert got == expected
-    assert lower_calls == [1]
+    monkeypatch.setattr(kernels, "for_platform",
+                        lambda: real._replace(serialize=overrun))
+    with pytest.raises(RuntimeError, match="overran"):
+        encode_batch(datas, p)
 
 
 def test_device_eos_encode_all_decoders():
-    """Device EOS-marker encode (VERDICT r2 item 6 — the last per-backend
+    """Device EOS-marker encode (
     capability asymmetry): the lane lowering appends the end-marker token
     (posSlot 63 / 26 one-bits / align 15, WriteEndMarker semantics,
     Encoder.java:818-835) and the .lzma header carries the unknown-size
@@ -183,14 +189,14 @@ def test_device_eos_encode_all_decoders():
     assert dev.decode_alone(blob) == data
 
 
-def test_device_eos_encode_pallas_serializer():
-    """The EOS marker bits ride the Pallas serializer identically."""
+def test_device_eos_encode_pallas_serializer(triton_interpret):
+    """The EOS marker bits ride the Triton range coder identically."""
     import lzma as _lzma
 
     from lzma_tpu.ops.device_encoder import encode_batch
 
-    data = (b"pallas eos payload " * 200)[:3000]
+    data = (b"triton eos payload " * 200)[:3000]
     p = LzmaParams(dict_size=1 << 12, fast_bytes=16, write_eos=True)
-    (s,) = encode_batch([data], p, use_pallas=True, write_eos=True)
+    (s,) = encode_batch([data], p, write_eos=True)
     blob = (p.encode_props() + (0xFFFFFFFFFFFFFFFF).to_bytes(8, "little") + s)
     assert _lzma.decompress(blob, format=_lzma.FORMAT_ALONE) == data

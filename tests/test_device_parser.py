@@ -54,27 +54,52 @@ def test_token_stream_covers_blocks():
 
 
 def test_band_matches_naive_dp():
-    """The banded scan and the naive plane scan are the same algorithm —
-    token-identical (the Pallas kernel is asserted against the band form
-    in interpret mode)."""
+    """The banded scan, the naive plane scan and the Triton kernel
+    (interpret mode) are the same algorithm — token-identical."""
+    from functools import partial
+
+    from lzma_tpu.ops.device_parser import (dp_parse, dp_parse_band,
+                                            dp_parse_triton)
+
     N, L = 1536, 3
     arr = np.stack([np.frombuffer(_corpus(i, N), np.uint8) for i in range(L)])
     lens = np.array([N, N, N - 400], np.int32)
-    a = _tok(arr, lens, N, band=False)
-    b = _tok(arr, lens, N, band=True)
-    c = _tok(arr, lens, N, band="pallas_interpret")
-    d = _tok(arr, lens, N, band="pallas2_interpret")
-    for x, y, z, u in zip(a, b, c, d):
-        x, y, z, u = map(np.asarray, (x, y, z, u))
-        w = min(x.shape[-1], y.shape[-1], z.shape[-1], u.shape[-1]) \
-            if x.ndim > 1 else None
-        if w is not None:
-            x, y, z, u = x[:, :w], y[:, :w], z[:, :w], u[:, :w]
+    a = _tok(arr, lens, N, dp=dp_parse)
+    b = _tok(arr, lens, N, dp=dp_parse_band)
+    c = _tok(arr, lens, N, dp=partial(dp_parse_triton, interpret=True))
+    for x, y, z in zip(a, b, c):
+        x, y, z = map(np.asarray, (x, y, z))
         assert np.array_equal(x, y)
         assert np.array_equal(x, z)
-        # round 5: the band-carried-state kernel (finalize dissolved
-        # into the relax) must stay token-identical too
-        assert np.array_equal(x, u)
+
+
+def test_dp_kernel_one_lane_is_not_padded():
+    """The kernel's buffers are lanes-last and hold exactly the caller's
+    lanes: a one-lane scan masks the rest of its program instead of
+    padding to DP_KERNEL_LANES, and still equals the band scan."""
+    from conftest import traced_arrays
+
+    from lzma_tpu.ops.device_parser import (DP_KERNEL_LANES, dp_parse_band,
+                                            dp_parse_triton, dp_scan_inputs)
+
+    N = 512
+    arr = jnp.asarray(np.frombuffer(_corpus(1, N), np.uint8)[None, :])
+    lens = jnp.asarray([N], jnp.int32)
+    ld, dd, model, r0pos, replen = dp_scan_inputs(
+        arr, lens, jnp.int32(N), lc=3, lp=0, pb=2, fb=32)
+
+    def scan(dp, **kw):
+        return lambda d, n, a, b: dp(d, n, a, b, model, 32, 2, False,
+                                     r0pos=r0pos, replen=replen, **kw)
+
+    _, calls = traced_arrays(scan(dp_parse_triton), arr, lens, ld, dd)
+    (avals,) = calls
+    assert DP_KERNEL_LANES > 1
+    assert all(a.shape[-1] == 1 for a in avals)
+    got = scan(dp_parse_triton, interpret=True)(arr, lens, ld, dd)
+    want = scan(dp_parse_band)(arr, lens, ld, dd)
+    for x, y in zip(got, want):
+        assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
 def test_device_optimal_encode_liblzma_decodes():
@@ -110,7 +135,7 @@ def test_seed_modes_all_valid():
     default — no second search) and the legacy lazy-tokenize seed must
     all produce liblzma-valid streams; the default must stay within
     0.5% of the lazy seed's size (measured BETTER on the frozen corpus,
-    MEASUREMENTS.md round-4 seed entry)."""
+   )."""
     p = LzmaParams(lc=3, lp=0, pb=2, dict_size=1 << 13, fast_bytes=32)
     datas = [_corpus(i, 5000) for i in range(3)]
     sizes = {}

@@ -70,7 +70,7 @@ def test_trained_dict_captures_dispersed_redundancy():
     # heterogeneous input: block 0 is incompressible junk, the repeated
     # record shapes live in the rest — the v2 prefix preset samples the
     # wrong content while the trained dictionary finds the records
-    # (the measured v3 use case, MEASUREMENTS.md)
+    # (the measured v3 use case)
     rng = random.Random(99)
     junk = bytes(rng.randrange(256) for _ in range(1 << 13))
     data = junk + _records(150_000)

@@ -29,7 +29,7 @@ GOLDEN = {
     "v1": (85729, "c83039c98ddc2c7449cf1afc643601b7"),
     "v2": (85768, "91d5eaac97fe12868582e8a1cf6dd767"),
     # dict/v3 re-pinned 2026-08-19: trainer d-mer table 2^17 -> 2^19
-    # (measured ratio win, MEASUREMENTS.md "Trainer refinements") — the
+    # (measured ratio win) — the
     # new v3 container is 194 B smaller on this fixture
     "v3": (87108, "2a642dd2e9e7e14052b67f83dc7ce840"),
     "dict": (4096, "c56eac7ec9562d6992b36c0fe7f4d8a3"),

@@ -49,7 +49,7 @@ def test_golden_parity(name):
     assert hashlib.md5(comp).hexdigest() == md5
 
 
-# Default-CI scalar sweep over a 64 KB fixture prefix (VERDICT r1 item 10):
+# Default-CI scalar sweep over a 64 KB fixture prefix:
 # the full-fixture sweep above is env-gated for cost, which would let a
 # scalar-oracle regression on a non-default config hide behind the native
 # backend.  These sizes/md5s are frozen from the scalar oracle at the

@@ -1,5 +1,5 @@
 """Hybrid-OPTIMAL pipeline: device candidate lists -> native optimal
-parser (VERDICT r1 item 3).
+parser.
 
 The plumbing oracle: feeding the native CAND finder the EXACT per-position
 match lists of the scalar BT4 BinTree must reproduce the native
@@ -112,7 +112,7 @@ def test_hybrid_optimal_ratio_near_bt4():
     blob_bt = native.encode_blocks(data, p, block_size=1 << 14)
     assert native.decode_blocks(blob_h) == data
     # within 3% of bt4-opt on the synthetic corpus (chip sweeps push the
-    # candidate count higher; see MEASUREMENTS.md)
+    # candidate count higher)
     assert len(blob_h) <= len(blob_bt) * 1.03, (len(blob_h), len(blob_bt))
 
 
@@ -132,8 +132,8 @@ def test_hybrid_optimal_preset_variants():
 
 
 def test_compress_backend_hybrid_roundtrip():
-    """compress(backend="hybrid") is the public hybrid-optimal surface
-    (VERDICT r2 item 1c): LZTB out, decodable by the standard decoder."""
+    """compress(backend="hybrid") is the public hybrid-optimal surface:
+    LZTB out, decodable by the standard decoder."""
     import lzma_tpu
     from lzma_tpu.bench.datagen import generate_bench_data
 

@@ -59,8 +59,8 @@ def test_two_process_pod_roundtrip():
 
 
 def test_two_process_pod_mb_payload():
-    """MB-scale payload through the real 2-process all_gather path
-    (VERDICT r2 item 5): the cross-process collectives carry
+    """MB-scale payload through the real 2-process all_gather path:
+    the cross-process collectives carry
     compressed-payload-sized buffers, not toy KBs."""
     s = socket.socket()
     s.bind(("localhost", 0))

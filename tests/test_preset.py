@@ -182,16 +182,15 @@ def test_hybrid_preset_round_trip():
                                    preset_len=1 << 11)
 
 
-def test_pallas_preset_round_trip():
+def test_pallas_preset_round_trip(triton_interpret):
     p = LzmaParams(dict_size=1 << 13, fast_bytes=32)
     data = _repetitive(16_000, seed=19)
     from lzma_tpu.ops import api as dev
 
-    v2 = dev.encode_blocks(data, p, block_size=1 << 12, preset_len=1 << 11,
-                           use_pallas=True)
+    v2 = dev.encode_blocks(data, p, block_size=1 << 12, preset_len=1 << 11)
     assert v2[4] == blk.VERSION_PRESET
-    assert dev.decode_blocks(v2, use_pallas=True) == data
     assert dev.decode_blocks(v2) == data
+    assert blk.decode_blocks(v2) == data
 
 
 def test_mesh_decodes_preset_containers():

@@ -101,7 +101,7 @@ def _capture(fn):
 
 
 def test_device_trace_matches_scalar_trace():
-    """VERDICT r3 item 7: the device token dump prints the scalar
+    """the device token dump prints the scalar
     per-symbol format.  On an input whose parse is unambiguous (unique
     bytes -> all literals; then one exact long repeat) both backends
     make identical decisions, so the traces must be LINE-IDENTICAL."""
@@ -145,7 +145,7 @@ def test_device_trace_optimal_parse_mode():
 
 
 def test_device_trace_dumps_match_lists():
-    """Round 5 (VERDICT r4 missing #2): the device trace also dumps the
+    """Round 5: the device trace also dumps the
     finder's per-position candidate lists in the scalar `matches=` line
     format (BinTree.java:139-150 analogue) — ascending (len, dist)
     pairs at every decision position, from the same engine the parse

@@ -1,5 +1,4 @@
-"""Candidate-tier sweep for the hybrid-optimal pipeline (VERDICT r2
-item 1a): measure frozen-corpus container-size delta vs native bt4-opt
+"""Candidate-tier sweep for the hybrid-optimal pipeline: measure frozen-corpus container-size delta vs native bt4-opt
 for tier configurations of device_matcher.find_match_lists.
 
 The device search runs on CPU here (ratio is backend-independent); the
@@ -16,8 +15,9 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
     globals().get("__file__", "tools/x.py"))))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
+from lzma_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax
 
 jax.config.update("jax_platforms", "cpu")

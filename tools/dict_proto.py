@@ -11,8 +11,8 @@ Variants over the SAME scoring machinery as utils/dicttrain.py:
 plus a finer k/d sweep around the recorded k=32/d=6 knee.
 
 Metric: LZTB v3 container size delta vs the no-dictionary container
-(bt4-optimal, dict 2^20, bs=2^16, D=bs/4), on the two real corpora from
-MEASUREMENTS.md ("text mix", "hetero").
+(bt4-optimal, dict 2^20, bs=2^16, D=bs/4), on two real corpora
+("text mix", "hetero").
 """
 import os
 import sys

@@ -1,4 +1,4 @@
-"""Host optimal-parse DP shave A/B (VERDICT r3 item 2).
+"""Host optimal-parse DP shave A/B.
 
 Times the native bt4-optimal single-thread block encode on the frozen
 corpus (the host-side cost the hybrid pipeline and bt4-opt both pay).

@@ -1,5 +1,4 @@
-"""Hybrid-optimal A/B: ratio + host-side speed vs native bt4-opt
-(VERDICT r1 item 3 done-criteria: ratio within 1% at >=2x encode speed).
+"""Hybrid-optimal A/B: ratio + host-side speed vs native bt4-opt.
 
 Device candidate search runs wherever JAX is (CPU here is fine for ratio;
 the chip does it at GB/s — bench.py measures that separately).  The
@@ -13,8 +12,9 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
     globals().get("__file__", "tools/x.py"))))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
+from lzma_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 # run on CPU when invoked with --cpu (the chip does the search in prod;
 # ratio numbers are identical)
 if "--cpu" in sys.argv:
@@ -69,8 +69,7 @@ def main(size_mb=4, k4=None, k8=None, fb=32):
         fl, fd, fo, pbase = _flatten_lists(cl, cd, counts, lens)
         t_flat = time.perf_counter() - t0
 
-        # interleaved median-of-3 (the rig's run-to-run band is ~±8%;
-        # MEASUREMENTS.md methodology entry)
+        # interleaved median-of-3 (host run-to-run band ~±8%)
         t_hosts, t_bts = [], []
         for _ in range(3):
             t0 = time.perf_counter()

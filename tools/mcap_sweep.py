@@ -1,5 +1,5 @@
-"""m_cap right-sizing sweep for the DP-pipeline candidate search
-(VERDICT r4 item 1): the deep tier ladder computes ~29 candidate
+"""m_cap right-sizing sweep for the DP-pipeline candidate search:
+the deep tier ladder computes ~29 candidate
 columns/position while the DP consumes ~4 merged pairs; after the
 round-5 cross-tier dedup, `m_cap` truncates each position's unique
 candidate set to the m_cap nearest BEFORE the LCP queries.  This sweep
@@ -20,8 +20,9 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
     globals().get("__file__", "tools/x.py"))))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
+from lzma_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -70,7 +71,7 @@ def size_at(m_cap):
     t0 = time.perf_counter()
     tp, tl, td, tv, ntok = tokenize_optimal(
         arr, lens, jnp.int32(BS), lc=3, lp=0, pb=2, fb=FB,
-        tiers_key=DP_TIERS, n_iter=2, band=True, m_cap_search=m_cap,
+        tiers_key=DP_TIERS, n_iter=2, m_cap_search=m_cap,
         m_cap_order=ORDER)
     jax.block_until_ready(tp)
     t_tok = time.perf_counter() - t0

@@ -1,4 +1,4 @@
-"""Virtual-mesh scaling measurement (VERDICT r1 item 6).
+"""Virtual-mesh scaling measurement.
 
 Runs the sharded block codec on an N-device virtual CPU mesh
 (N in {1,2,4,8}) over an MB-scale payload and records:
@@ -6,8 +6,8 @@ Runs the sharded block codec on an N-device virtual CPU mesh
   - the payload-gather cost: gather-to-all (all_gather, the multi-host
     form) vs sharded-out (no collective, the single-host form)
 
-Caveat printed with the numbers: the rig has 2 physical cores, so all N
-virtual devices timeshare 2 cores — compute cannot speed up with N; what
+Caveat printed with the numbers: on a host with few physical cores all N
+virtual devices timeshare those cores — compute cannot speed up with N; what
 this isolates is the COLLECTIVE/overhead curve, i.e. how much the
 gather design costs as N grows at fixed total work.
 

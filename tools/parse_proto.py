@@ -3,7 +3,7 @@
 Measures the container-size effect of replacing the pointwise greedy/lazy
 parse decision with a backward dynamic program over STATIC structural
 prices (the init-probability cost of each symbol shape), before building
-the TPU scan version.  The DP considers, per position, the literal edge
+the device scan version.  The DP considers, per position, the literal edge
 and a sampled grid of lengths of the best match candidate; segments are
 independent (matches truncate at segment ends) so the device version can
 run all segments lock-step in one lax.scan.

@@ -11,8 +11,9 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
     globals().get("__file__", "tools/x.py"))))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
+from lzma_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np
 
 if "--cpu" in sys.argv:
